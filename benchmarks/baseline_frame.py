@@ -1,12 +1,11 @@
 """Single source of truth for the baseline-denominator frame.
 
-PINNED perfect-MPI node size (round-3 verdict fix, extended to ALL
-artifacts in round 5): the denominator frame must not depend on the
-bench box's ``os.cpu_count()``, which shrank 4 → 2 → 1 across rounds
-1-3 and silently moved the headline ratio 4×, and in round 4 made
-``benchmarks/results.json`` (still computed with ``os.cpu_count()``)
-contradict ``BENCH_r04.json`` (already pinned). Both ``bench.py`` and
-``benchmarks/run_all.py`` import THIS constant; a regression test
+PINNED perfect-MPI node size, for ALL artifacts: the denominator frame
+must not depend on the bench box's ``os.cpu_count()``, which once shrank
+4 → 2 → 1 between bench boxes and silently moved the headline ratio 4×,
+and once made ``benchmarks/results.json`` contradict bench.py's pinned
+frame. Both ``bench.py`` and ``benchmarks/run_all.py`` import THIS
+constant; a regression test
 (tests/test_baseline_frame.py) asserts they agree so the two shipping
 artifacts can never publish different frames again.
 

@@ -1,4 +1,4 @@
-"""bipymc_tpu — TPU-native Bayesian MCMC.
+"""bipymc_tpu — accelerator-native Bayesian MCMC.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of
 ``wgurecky/bipymc`` (see SURVEY.md for the capability contract):
@@ -12,8 +12,10 @@ A brand-new JAX/XLA/Pallas framework with the capabilities of
   with the same step function — this replaces the reference's mpi4py chain
   pool (SURVEY.md §3.2).
 - GP regression (SE-ARD kernel, Cholesky fit/predict, exact log-marginal
-  likelihood with ``jax.grad`` hyperopt); Pallas kernels for the kernel-matrix
-  build.
+  likelihood with ``jax.grad`` hyperopt).
+- Fused multi-generation engines (``fused=True``): whole chunks of
+  generations per Pallas-Triton kernel on the GPU (interpret mode on the
+  CPU) — ``ops/route.py``.
 - On-device diagnostics: split Gelman-Rubin R-hat, FFT autocorrelation / ESS,
   acceptance fractions, streaming R-hat early stopping.
 """

@@ -1,9 +1,8 @@
 """Shared scalar numerics used by more than one engine.
 
 Helpers here are plain elementwise jnp — safe under jit/vmap/scan AND
-inside Pallas kernel bodies (Mosaic-supported ops only; notably
-``jnp.expm1`` is NOT lowerable on Mosaic TPU, which is why
-:func:`log1mexp` carries its own series branch). Sharing one definition
+inside Pallas kernel bodies (ops the Triton lowering supports).
+Sharing one definition
 is load-bearing for the fused engines' bit-parity contracts: the
 per-step and fused RW engines must evaluate the Green–Mira acceptance
 with the *same* floating-point formula, so a numerical tweak must reach
@@ -26,8 +25,9 @@ def log1mexp(log_a):
 
     Mächler (2012)'s two-branch scheme, with the near-zero branch's
     ``log(−expm1(x))`` rewritten as ``log(−x) + log1p(p(x))`` via the
-    Taylor series of (e^x−1)/x: Mosaic TPU has no ``expm1`` lowering,
-    and the naive ``log1p(−exp(x))`` loses all relative precision as
+    Taylor series of (e^x−1)/x, which needs no ``expm1`` (not every
+    kernel lowering has one), and the naive ``log1p(−exp(x))`` loses all
+    relative precision as
     x→0⁻ (1−e^x suffers cancellation against exp's own rounding).
     Branch point −0.2: the series is sub-eps there for f32 AND f64,
     and 1−e^x retains ~7 significant digits in f32 beyond it.

@@ -1,7 +1,8 @@
 """RNG key discipline.
 
 The reference seeds one NumPy ``RandomState`` per chain (SURVEY.md §2 L2
-"seeded per-chain RNG"). The TPU-native equivalent is JAX's counter-based
+"seeded per-chain RNG"). The accelerator-native equivalent is JAX's
+counter-based
 PRNG with deterministic *folding*: every (step, chain) pair gets an
 independent stream derived from one base key, so
 

@@ -2,7 +2,7 @@
 
 The reference's hot loop is a serial Python ``for t in range(n)`` inside
 ``run_mcmc`` (SURVEY.md §5.1). Here the whole loop is one compiled
-``lax.scan`` over a pure ``step(state, key) -> (state, info)``, so the TPU
+``lax.scan`` over a pure ``step(state, key) -> (state, info)``, so the device
 never returns to the host between steps. Thinned collection nests a scan:
 the outer scan collects, the inner scan advances ``thin`` steps without
 materialising history.
@@ -16,7 +16,8 @@ from bipymc_tpu.core.rng import step_key
 
 
 def run_scan(step_fn, state, base_key, n_steps, collect_fn=None):
-    """Scan ``step_fn`` for ``n_steps``, collecting ``collect_fn(state, info)``.
+    """Scan ``step_fn`` for ``n_steps``, collecting ``collect_fn(state,
+    info)``.
 
     step_fn: (state, key, t) -> (state, info). ``t`` is the global step index
     (int32 scalar), used both for RNG folding and adaptation schedules.

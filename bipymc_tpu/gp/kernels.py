@@ -4,13 +4,12 @@ Reference capability (SURVEY.md §4.9, `bipymc/gp/` [U], [B]): squared-
 exponential kernel with ARD length-scales. Kernels here are pure functions
 ``k(params, X, X2) -> K`` built on one shared pairwise-squared-distance
 primitive that decomposes as ‖x‖² + ‖x′‖² − 2 x·x′ᵀ — the cross term is a
-matmul, which XLA tiles onto the MXU (and which the Pallas kernel in
-:mod:`bipymc_tpu.ops.pallas_kernels` fuses with the exp for large n).
+matmul (:mod:`bipymc_tpu.ops.distance`).
 """
 
 import jax.numpy as jnp
 
-from bipymc_tpu.ops.pallas_kernels import pairwise_sqdist
+from bipymc_tpu.ops.distance import pairwise_sqdist
 
 
 def _scale(X, lengthscales):

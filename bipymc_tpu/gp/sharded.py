@@ -7,7 +7,7 @@ sharding for n ≳ 10⁴ training points. Strategy:
 - the Gram matrix is built in *row blocks* under ``jax.shard_map`` — each
   device computes ``kernel(params, x_local, x_full)`` for its slice of
   training rows, so build FLOPs and peak memory divide by the device
-  count (and each block rides the device's own MXU);
+  count (and each block is one matmul on its own device);
 - the O(n³) Cholesky stays replicated (XLA has no distributed Cholesky;
   for GP-scale n the factorisation fits one chip once the build is paid);
 - prediction shards *test* points — embarrassingly parallel.
@@ -65,8 +65,7 @@ def fit_sharded(gp, x, y, mesh: Mesh, params=None, axis: str = CHAIN_AXIS):
         params = default_params(x.shape[-1], dtype=x.dtype)
     yn, y_mean, y_std = gp._normalize(y)
     kmat = sharded_gram(gp, params, x, mesh, axis)
-    # the regressor's own factorise/solve helpers, so the gp's configured
-    # pallas_chol/pallas_solve paths apply here too
+    # the regressor's own factorise/solve helpers
     chol = gp._cholesky(kmat)
     v = gp._solve_lower(chol, yn)
     alpha = gp._solve_lower_t(chol, v)

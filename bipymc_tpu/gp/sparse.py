@@ -9,9 +9,9 @@ factorisation, with a collapsed evidence lower bound (ELBO) whose gap to
 the exact log-ML is controlled by the trace term — so inducing points and
 hyperparameters are trained jointly by ``jax.grad`` ascent on one scalar.
 
-TPU mapping: every O(n·) contraction is a dense matmul with a static
-shape — ``Kmn`` rides the Pallas/MXU pairwise-distance build, ``A·Aᵀ``
-([m,n]×[n,m]) and ``A·y`` are MXU contractions — and the per-datapoint
+Accelerator mapping: every O(n·) contraction is a dense matmul with a static
+shape — ``Kmn`` rides the one-matmul pairwise-distance build, ``A·Aᵀ``
+([m,n]×[n,m]) and ``A·y`` are matmul contractions — and the per-datapoint
 statistics are *sums over n*, so the data axis shards over a device mesh
 with two ``psum``s closing the bound (:func:`elbo_sharded`,
 :func:`fit_sharded`); the replicated tail is m×m. This is the classic
@@ -42,7 +42,6 @@ from typing import Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 from jax.sharding import Mesh, PartitionSpec as P
 
 from bipymc_tpu.gp.kernels import squared_exp
@@ -135,7 +134,7 @@ class SparseGpRegressor:
             n_eff = jnp.sum(mask)
         else:
             n_eff = jnp.asarray(x.shape[0], y.dtype)
-        aat = a @ a.T                                     # [m, m] MXU
+        aat = a @ a.T                                     # [m, m]
         ay = a @ y / sn                                   # [m]
         yty = jnp.sum(y * y) / sn ** 2
         # VFE gap: (tr(Knn)/σ² − tr(A Aᵀ)) — tr(Qnn)/σ² IS tr(A Aᵀ)
@@ -222,7 +221,7 @@ class SparseGpRegressor:
         ((best_params, best_z), best_elbo).
 
         Same scan-safe non-finite-step rejection as
-        ``GpRegressor.optimize`` (docs/ROUND3.md §17): an Adam overshoot
+        ``GpRegressor.optimize``: an Adam overshoot
         near the σ_n→0 cliff yields NaN loss/grads for one step; keeping
         the last good iterate instead of poisoning the scan."""
         x = jnp.atleast_2d(x)
@@ -245,6 +244,7 @@ class SparseGpRegressor:
             return -self._elbo_impl(p, zz, x, yn)
 
         loss_grad = jax.value_and_grad(loss_fn)
+        import optax          # optional: hyperparameter optimisation only
         opt = optax.adam(lr)
         pz0 = (params, z if optimize_z else jax.lax.stop_gradient(z))
 
@@ -308,7 +308,7 @@ def elbo_sharded(gp: SparseGpRegressor, params, z, x, y, mesh: Mesh,
     """Collapsed ELBO with the data axis sharded over ``mesh``.
 
     Each device computes the sufficient statistics of its row block
-    (O(n_local·m²) FLOPs, all MXU matmuls); two psums of m×m / m-vector
+    (O(n_local·m²) FLOPs, all matmuls); two psums of m×m / m-vector
     partials close the bound. Matches the dense :meth:`.elbo` to float
     rounding (tests/test_gp_sparse.py, 8-fake-device mesh). Differentiable
     — ``jax.grad`` through the shard_map gives data-parallel ELBO ascent."""

@@ -1,2 +1,2 @@
-from bipymc_tpu.ops.pallas_kernels import pairwise_sqdist
+from bipymc_tpu.ops.distance import pairwise_sqdist
 from bipymc_tpu.ops.linalg import chol_rank1_update

@@ -1,70 +1,47 @@
-"""Fused Pallas kernel for the DREAM-zs proposal math.
+"""DREAM-zs proposal math on one chain block, for the fused kernel.
 
-The deterministic proposal math is ~30 small element-wise/reduction ops
-([n,d]-shaped), each paying kernel launch + HBM round-trip at 256-chain
-batch sizes; this module fuses it into ONE Pallas VPU kernel — inputs
-arrive once from HBM, everything happens in VMEM, one output write.
-Measured on v5e: the fused kernel earns ~16µs/generation at 256×100
-(current full-step ablation in docs/ROUND2.md; companion fused kernel:
-ops/distinct_idx.py for the row draws. The fused accept/update kernel
-ships OFF-default as ops/accept_select.py behind
-``DreamConfig(pallas_accept=True)``: XLA wins its A/B at every measured
-chain count, 256–4096 — docs/design.md §10c).
+The fused multi-generation engine (ops/fused_chunk.py) runs this inside
+its kernel; the per-generation engine runs the per-chain jnp form
+(samplers/dream.py ``propose_math_one``), which is the reference the
+tests hold this function to. Randomness and archive row gathers stay in
+XLA, so this is a pure deterministic function of them.
 
-Randomness and archive row gathers stay in XLA (identical RNG streams to
-the unfused path); the kernel is a pure deterministic function of them, so
-fused/unfused paths differ only by float re-association. The unfused jnp
-path (samplers/dream.py `_propose_math`) is the reference; equivalence is
-tested in interpret mode and on hardware (tests/test_dream_pallas.py).
-
-Layout: chains are the sublane axis (grid-blocked), dims are lanes padded
-to 128. Per-chain scalars ride in a [n, 128] array (lanes 0..4 used).
-Reductions over the dim axis are lane reductions; zero padding keeps them
-exact, and the crossover-mask uniforms pad with 2.0 so padded lanes never
-win the argmin or enter the mask.
+Layout: chains on the first axis, dims on the second, padded with zeros
+to a power of two. Per-chain scalars are ``[BC, 1]`` columns. Reductions
+over the dim axis stay exact under zero padding, and the crossover-mask
+uniforms pad with 2.0 so padded dims never enter the mask or win its
+argmin.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from bipymc_tpu.ops.tiling import round_up
-
-_BC = 128          # chain block (sublanes)
-_LANE = 128
-
-# scalar lane assignments in the packed per-chain scalar array
-_S_DELTA, _S_CR, _S_GS, _S_SNK, _S_GJUMP = 0, 1, 2, 3, 4
-
 
 
 def propose_block(x, rows, u, ue, eps, delta, cr, gamma_s, is_snk,
                   gamma_jump, n_pairs, d_true, b, b_star):
     """Value-level DREAM-zs proposal math on one chain block.
 
-    x [BC, L] (L = lane-padded dims, pads zero); rows [BC, k, L];
-    u [BC, L] crossover uniforms (pads hold 2.0 so they never enter the
-    mask or win the argmin); ue/eps [BC, L]; per-chain scalars [BC, 1].
-    Returns (x_star [BC, L], log_jac [BC, 1], snk [BC, 1] bool).
+    x [BC, L] (L = padded dims, pads zero); rows: a sequence of
+    ``max(2·n_pairs, 3)`` archive-row blocks, each [BC, L]; u [BC, L]
+    crossover uniforms (pads hold 2.0); ue/eps [BC, L]; per-chain
+    scalars [BC, 1]. Returns (x_star [BC, L], log_jac [BC, 1],
+    snk [BC, 1] bool).
 
-    Shared by the per-generation kernel below and the multi-generation
-    fused engine (ops/fused_chunk.py) so both consume identical math.
-    Mosaic-safe ops only (no scatter, first-min via iota instead of
-    argmin).
+    Rows arrive as separate blocks because Triton cannot slice a tensor
+    held in registers: the kernel loads each row block from its ref.
+    First-min is an iota reduction rather than argmin, and there is no
+    scatter, so the body lowers through Pallas-Triton.
     """
     # ---- parallel-direction move ------------------------------------
     diff = jnp.zeros_like(x)
     for j in range(n_pairs):
-        w = (jnp.float32(j) < delta).astype(x.dtype)
-        diff = diff + w * (rows[:, j, :] - rows[:, n_pairs + j, :])
+        w = (jnp.asarray(j, x.dtype) < delta).astype(x.dtype)
+        diff = diff + w * (rows[j] - rows[n_pairs + j])
 
     mask = (u < cr).astype(x.dtype)
     # guarantee ≥1 crossed dim: mark the lane holding the min uniform.
     # FIRST minimum only — (u == umin) alone would set every tied lane,
-    # diverging from the reference paths' argmin on bit-equal draws
+    # diverging from the reference path's argmin on bit-equal draws
     umin = jnp.min(u, axis=1, keepdims=True)
     lane = jax.lax.broadcasted_iota(jnp.int32, u.shape, 1)
     first_min = jnp.min(
@@ -72,20 +49,24 @@ def propose_block(x, rows, u, ue, eps, delta, cr, gamma_s, is_snk,
     mask = jnp.maximum(mask, (lane == first_min).astype(x.dtype))
     d_eff = jnp.sum(mask, axis=1, keepdims=True)
 
-    gamma = 2.38 * jax.lax.rsqrt(2.0 * delta * d_eff)
+    gamma = 2.38 / jnp.sqrt(2.0 * delta * d_eff)
     gamma = jnp.where(gamma_jump > 0.5, 1.0, gamma)
     e = b * (2.0 * ue - 1.0)
     x_par = x + mask * ((1.0 + e) * gamma * diff + b_star * eps)
 
     # ---- snooker move ------------------------------------------------
-    z = rows[:, 0, :]
-    zr1 = rows[:, 1, :]
-    zr2 = rows[:, 2, :]
+    z, zr1, zr2 = rows[0], rows[1], rows[2]
     u_dir = x - z
     denom = jnp.maximum(
         jnp.sum(u_dir * u_dir, axis=1, keepdims=True), 1e-30)
-    dots = jnp.sum((zr1 - zr2) * u_dir, axis=1, keepdims=True)
-    x_snk = x + gamma_s * (dots / denom) * u_dir
+
+    def proj(v):
+        return z + (jnp.sum((v - z) * u_dir, axis=1, keepdims=True)
+                    / denom) * u_dir
+
+    # the reference's operation order (projections of both rows, then
+    # their difference), so the two engines round alike
+    x_snk = x + gamma_s * (proj(zr1) - proj(zr2))
     num = jnp.maximum(
         jnp.sum((x_snk - z) ** 2, axis=1, keepdims=True), 1e-30)
     log_jac_snk = (d_true - 1) * 0.5 * (jnp.log(num) - jnp.log(denom))
@@ -94,71 +75,3 @@ def propose_block(x, rows, u, ue, eps, delta, cr, gamma_s, is_snk,
     x_star = jnp.where(snk, x_snk, x_par)
     log_jac = jnp.where(snk, log_jac_snk, 0.0)
     return x_star, log_jac, snk
-
-
-def _make_kernel(n_pairs, d_true, b, b_star):
-    def kernel(x_ref, rows_ref, umask_ref, ue_ref, eps_ref, scal_ref,
-               xstar_ref, aux_ref):
-        x = x_ref[:]                         # [BC, L]
-        scal = scal_ref[:]                   # [BC, L], lanes 0..4
-        x_star, log_jac, _ = propose_block(
-            x, rows_ref[:], umask_ref[:], ue_ref[:], eps_ref[:],
-            scal[:, _S_DELTA:_S_DELTA + 1],
-            scal[:, _S_CR:_S_CR + 1],
-            scal[:, _S_GS:_S_GS + 1],
-            scal[:, _S_SNK:_S_SNK + 1],
-            scal[:, _S_GJUMP:_S_GJUMP + 1],
-            n_pairs, d_true, b, b_star)
-        xstar_ref[:] = x_star
-        # log_jac broadcast into lane 0 (scatter is unsupported in Mosaic)
-        lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-        aux_ref[:] = jnp.where(lane == 0, log_jac, 0.0)
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_pairs", "d_true", "b", "b_star", "interpret"))
-def dream_propose_pallas(x, rows, u_mask, u_e, eps, scal,
-                         n_pairs, d_true, b, b_star, interpret=False):
-    """Fused proposal math.
-
-    x [n, d]; rows [n, k, d] (k = max(2·n_pairs, 3) gathered archive
-    rows); u_mask/u_e/eps [n, d]; scal [n, 5] packed per-chain scalars
-    (delta, cr, gamma_s, is_snooker, gamma_jump as floats).
-    Returns (x_star [n, d], log_jac [n]).
-    ``interpret=True`` runs the kernel in Pallas interpret mode (CPU
-    golden/equivalence tests of the fused path).
-    """
-    n, d = x.shape
-    k = rows.shape[1]
-    n_p = round_up(n, _BC)
-    d_p = round_up(d, _LANE)
-
-    def pad_nd(a, fill=0.0):
-        return jnp.pad(a, ((0, n_p - n), (0, d_p - d)),
-                       constant_values=fill)
-
-    x_p = pad_nd(x)
-    rows_p = jnp.pad(rows, ((0, n_p - n), (0, 0), (0, d_p - d)))
-    umask_p = pad_nd(u_mask, fill=2.0)   # never wins argmin / enters mask
-    ue_p = pad_nd(u_e)
-    eps_p = pad_nd(eps)
-    scal_p = jnp.pad(scal, ((0, n_p - n), (0, _LANE - scal.shape[1])))
-
-    grid = (n_p // _BC,)
-    row_spec = pl.BlockSpec((_BC, k, d_p), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    nd_spec = pl.BlockSpec((_BC, d_p), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-    x_star, aux = pl.pallas_call(
-        _make_kernel(n_pairs, d_true, float(b), float(b_star)),
-        grid=grid,
-        in_specs=[nd_spec, row_spec, nd_spec, nd_spec, nd_spec, nd_spec],
-        out_specs=[nd_spec, nd_spec],
-        out_shape=[jax.ShapeDtypeStruct((n_p, d_p), x.dtype),
-                   jax.ShapeDtypeStruct((n_p, d_p), x.dtype)],
-        interpret=interpret,
-    )(x_p, rows_p, umask_p, ue_p, eps_p, scal_p)
-    return x_star[:n, :d], aux[:n, 0]

@@ -1,14 +1,12 @@
-"""Fused multi-generation DREAM-zs chunk: the whole sampler in ONE kernel.
+"""Fused multi-generation DREAM-zs chunk: G generations in ONE kernel.
 
-Round-2/3 measurements (docs/design.md §5b, §10c) established that the
-256-chain DREAM generation is *dispatch-bound*: ~25 small XLA/Pallas
-launches per generation cost ~31µs while the useful VPU math is ~1-2µs.
-Fusing single ops (accept/update) LOST because each kernel boundary pays
-operand pack/unpack per generation. This module removes the boundary
-itself: one ``pallas_call`` advances ``G = archive_thin`` generations
-with the population state (x, logp) carried in VMEM scratch across a
-sequential grid, so per-generation cost collapses to streamed-input DMA
-plus the math.
+A 256-chain × d=100 DREAM generation is ~25k floats of math spread over
+~25 small XLA fusions, so the per-generation engine is launch-bound on
+the GPU: it pays a launch per fusion per generation. This kernel
+advances ``G = archive_thin`` generations per launch. The grid runs over
+chain blocks only; inside a block a ``fori_loop`` walks the G
+generations with (x, logp) as loop-carried values, reading each
+generation's inputs from its refs at index g.
 
 Why G = archive_thin is the natural chunk: the archive Z is *constant*
 within such a chunk by construction — the per-generation engine
@@ -17,93 +15,62 @@ within such a chunk by construction — the per-generation engine
 generation, *after* its proposal consumed Z. All row gathers for the
 chunk can therefore be precomputed OUTSIDE the kernel by XLA (they
 depend only on pregenerated random bits and the chunk-start archive),
-and the in-kernel loop needs no dynamic gathers — the operation Mosaic
-cannot do fast. Semantics are exactly the per-generation engine's.
+and the kernel needs no dynamic gathers. Semantics are exactly the
+per-generation engine's.
 
 Division of labour per chunk (samplers/dream_fused.py drives this):
 
 - XLA (once per chunk): threefry bits for all G generations —
   *identical streams* to the per-generation engine — uniform/normal
-  conversion, distinct row indices (ops/distinct_idx.py), the Z row
-  gather, per-chain scalar packing, and the archive append at the end.
+  conversion, distinct row indices, the Z row gather, per-chain scalars,
+  and the archive append at the end.
 - Pallas (this kernel): for g = 0..G-1 — crossover/snooker proposal
-  math (ops/dream_proposal.propose_block, the same function the
-  per-generation kernel runs), the target log-density (inlined
-  ``log_prob_block``), and Metropolis accept/select. x and logp live in
-  VMEM scratch; per-generation inputs stream in and history streams out
-  through the pipelined grid.
+  math (ops/dream_proposal.propose_block), the target log-density
+  (inlined ``log_prob_block``), and Metropolis accept/select.
 
-The target must be expressible on a lane-padded block:
-``log_prob_block(x_pad [BC, Dp]) -> [BC, 1]`` with pad lanes zero (see
-``block_logp_from_scalar`` for the generic wrapper). Trajectories match
-the per-generation engine bit-for-bit in randomness and up to float
-re-association in math (tests/test_fused_chunk.py pins exact equality
-against the pallas-proposal per-generation path in interpret mode).
-
-Reference parity: this accelerates the same DREAM-zs algorithm as the
-reference's ``DreamZs`` (SURVEY.md §4.7); it is an execution strategy,
-not a new sampler.
+The in-kernel target works on a padded block: ``log_prob_block(x_pad
+[BC, Dp]) -> [BC, 1]`` with Dp the next power of two ≥ d and pad
+columns zero. models/targets.py has padded block forms (``*_block``)
+whose constants are zero-padded to powers of two, which is what Triton
+can lower. :func:`block_logp_from_scalar` wraps a scalar target for the
+interpreter on the CPU; on the GPU a target needs a block form
+(samplers/api.py checks this at construction).
 """
 
 import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from bipymc_tpu.core.rng import uniform_to_normal
 from bipymc_tpu.ops.dream_proposal import propose_block
-from bipymc_tpu.ops.tiling import round_up
+from jax.experimental.pallas import triton as pl_triton
 
-_LANE = 128
+from bipymc_tpu.ops.route import interpret_mode, next_pow2, round_up
 
-# scal lane assignments ([G, n, LANE] per-chain packed scalars)
-S_DELTA, S_CR, S_GS, S_SNK, S_GJUMP, S_LOGU = 0, 1, 2, 3, 4, 5
+# per-chain scalar rows of ``scal`` ([G, 6, n] inside the wrapper)
+S_DELTA, S_CR, S_GS, S_SNK, S_GJUMP, S_LOGU = range(6)
+N_SCAL = 6
 
-
-def _bits_to_uniform_block(bits):
-    """uint32 bits → U[0,1) f32, the same top-23-bit mantissa trick as
-    core.rng.bits_to_uniform, in Mosaic-safe ops (pltpu.bitcast)."""
-    b = pltpu.bitcast(bits, jnp.uint32)
-    return pltpu.bitcast((b >> jnp.uint32(9)) | jnp.uint32(0x3F800000),
-                         jnp.float32) - 1.0
-
-
-def _draw_kernel_randomness(shape, d_true, bits_refs=None):
-    """Generate (u_mask, u_e, eps) in-kernel.
-
-    With ``bits_refs=None`` draws from the seeded hardware PRNG
-    (``pltpu.prng_random_bits``); otherwise consumes three streamed
-    uint32 blocks (the CPU-testable path — the interpret-mode PRNG
-    stub returns zeros, so tests stream recorded bits through the SAME
-    conversion code instead). u_mask pad lanes hold 2.0 so they never
-    enter the crossover mask or win its argmin; eps uses the identical
-    inverse-erf map as the host-side stream path (lax.erf_inv lowers on
-    Mosaic), so for equal bits the two paths agree bitwise."""
-    if bits_refs is None:
-        mbits = pltpu.prng_random_bits(shape)
-        ebits = pltpu.prng_random_bits(shape)
-        nbits = pltpu.prng_random_bits(shape)
-    else:
-        mbits, ebits, nbits = (r[0] for r in bits_refs)
-    lane = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-    u_m = jnp.where(lane < d_true, _bits_to_uniform_block(mbits), 2.0)
-    u_e = _bits_to_uniform_block(ebits)
-    eps = uniform_to_normal(_bits_to_uniform_block(nbits))
-    return u_m, u_e, eps
+# chains per program and Triton launch parameters, the fastest of a sweep
+# of the runner at 256 chains × d=100 on an H100 (PERF.md)
+BLOCK_CHAINS = 8
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
 def block_logp_from_scalar(log_prob, d):
-    """Wrap a scalar ``log_prob(theta [d]) -> []`` for in-kernel use.
+    """Wrap a scalar ``log_prob(theta [d]) -> []`` as a padded-block
+    target ``[BC, Dp] -> [BC, 1]``.
 
-    Slices the true dims off the lane-padded block and vmaps. Works for
-    any jnp-expressible target whose ops Mosaic supports (elementwise,
-    reductions, small dots); targets with gathers/linalg need the
-    per-generation engine instead.
+    Slices the true dims off the padded block and vmaps. A tensor slice
+    does not lower through Triton, so this form serves the interpreter
+    (CPU); on the GPU pass a padded block form (models/targets.py).
     """
     def f(x_pad):
-        return jax.vmap(log_prob)(x_pad[:, :d])[:, None]
+        x = x_pad if x_pad.shape[1] == d else x_pad[:, :d]
+        return jax.vmap(log_prob)(x)[:, None]
     return f
 
 
@@ -112,10 +79,9 @@ def lp_block_cache(log_prob, log_prob_block=None):
 
     The fused drivers pass log_prob_block as a *static* (hashable) jit
     argument, so its identity must be stable across runner calls — a
-    fresh closure per call would defeat the jit cache (the round-2
-    ``run_until`` recompile-bug class). Returns ``lp_block_for(dim)``;
-    an explicit ``log_prob_block`` short-circuits the cache. Shared by
-    the fused DREAM / RW / stretch drivers.
+    fresh closure per call would defeat the jit cache. Returns
+    ``lp_block_for(dim)``; an explicit ``log_prob_block``
+    short-circuits the cache. Shared by the fused DREAM / RW drivers.
     """
     blocks: dict = {}
 
@@ -135,102 +101,58 @@ def hoist_target_consts(log_prob_block, bc, d_p, dtype):
     Pallas kernels cannot capture array constants (mode centres, data
     vectors, …), and ``closure_convert`` only extracts tracers — so
     trace to a jaxpr and lift the concrete consts explicitly. Returns
-    ``(closed_fn, consts_2d, const_shapes, const_specs)``: call
-    ``closed_fn(x_block, *consts)`` inside the kernel with the const
-    refs' values (restored to their true shapes via ``const_shapes`` —
-    rank < 2 consts are lifted to (1, k) so every operand is a legal
-    2-D VMEM block). Shared by the fused DREAM and stretch kernels.
+    ``(closed_fn, consts, const_specs)``: call ``closed_fn(x_block,
+    *const_refs)`` inside the kernel; it loads each constant from its
+    ref at the point of use. Shared by the fused DREAM and RW kernels.
     """
     closed = jax.make_jaxpr(log_prob_block)(
         jax.ShapeDtypeStruct((bc, d_p), dtype))
-    consts = closed.consts
-
-    def closed_fn(xb, *cs):
-        out = jax.core.eval_jaxpr(closed.jaxpr, cs, xb)
-        return out[0]
-
-    const_shapes = tuple(tuple(c.shape) for c in consts)
-    consts_2d = [c if c.ndim >= 2 else jnp.reshape(c, (1, -1))
-                 for c in consts]
+    consts = [jnp.asarray(c) for c in closed.consts]
     const_specs = [
-        pl.BlockSpec(c.shape, lambda *_, _nd=c.ndim: (0,) * _nd,
-                     memory_space=pltpu.VMEM)
-        for c in consts_2d]
-    return closed_fn, consts_2d, const_shapes, const_specs
+        pl.BlockSpec(c.shape, lambda *_, _nd=c.ndim: (0,) * _nd)
+        for c in consts]
+
+    def closed_fn(xb, *const_refs):
+        cs = [r[...] for r in const_refs]
+        return jax.core.eval_jaxpr(closed.jaxpr, cs, xb)[0]
+
+    return closed_fn, consts, const_specs
 
 
-def _make_kernel(closed_fn, const_shapes, n_pairs, d_true, b, b_star,
-                 rng="stream", test_bits=False):
-    nc = len(const_shapes)
+def _make_kernel(closed_fn, n_consts, n_gens, n_pairs, n_rows, d_true, b,
+                 b_star):
 
-    def kernel(*refs):
-        if rng == "stream":
-            (x0_ref, lp0_ref, rows_ref, um_ref, ue_ref, eps_ref,
-             scal_ref) = refs[:7]
-            n_in = 7
-        else:
-            x0_ref, lp0_ref, rows_ref, scal_ref, seed_ref = refs[:5]
-            n_in = 5
-            bits_refs = None
-            if test_bits:
-                bits_refs = refs[5:8]
-                n_in = 8
-        const_refs = refs[n_in:n_in + nc]
-        xh_ref, aux_ref, x_scr, lp_scr = refs[n_in + nc:]
-        # target-closure constants arrive as kernel inputs (Pallas
-        # kernels cannot capture array constants): rank ≥ 2 native,
-        # rank < 2 lifted to (1, k) (restored here — Mosaic handles the
-        # leading-singleton drop; arbitrary reshapes it does not)
-        consts = [cref[:] if len(shape) >= 2 else cref[:].reshape(shape)
-                  for cref, shape in zip(const_refs, const_shapes)]
-        g = pl.program_id(1)
+    def kernel(x0_ref, lp0_ref, rows_ref, um_ref, ue_ref, eps_ref,
+               scal_ref, *refs):
+        const_refs = refs[:n_consts]
+        xh_ref, lph_ref, acc_ref = refs[n_consts:]
 
-        @pl.when(g == 0)
-        def _init():
-            x_scr[:] = x0_ref[:]
-            lp_scr[:] = lp0_ref[:]
+        def generation(g, carry):
+            x, lp = carry                         # [BC, Dp], [BC, 1]
 
-        x = x_scr[:]                              # [BC, Dp]
-        lp = lp_scr[:, 0:1]                       # [BC, 1]
-        scal = scal_ref[0]                        # [BC, LANE]
+            def col(c):
+                return scal_ref[g, c, :][:, None]  # [BC, 1]
 
-        if rng == "stream":
-            um, ue, eps = um_ref[0], ue_ref[0], eps_ref[0]
-        else:
-            if not test_bits:
-                # distinct stream per (generation, chain-block) cell:
-                # the per-gen seed word comes from the host threefry
-                # hierarchy, the block id folds in here
-                pltpu.prng_seed(seed_ref[g, 0], pl.program_id(0))
-            um, ue, eps = _draw_kernel_randomness(
-                x.shape, d_true,
-                bits_refs=bits_refs if test_bits else None)
+            x_star, log_jac, _ = propose_block(
+                x, [rows_ref[g, :, j, :] for j in range(n_rows)],
+                um_ref[g], ue_ref[g], eps_ref[g],
+                col(S_DELTA), col(S_CR), col(S_GS), col(S_SNK),
+                col(S_GJUMP), n_pairs, d_true, b, b_star)
+            lps = closed_fn(x_star, *const_refs)  # [BC, 1]
+            # Metropolis-with-Jacobian accept; NaN/-inf proposals always
+            # reject (same guard as samplers/dream.py step)
+            log_alpha = jnp.minimum(0.0, lps - lp + log_jac)
+            log_alpha = jnp.where(jnp.isfinite(lps), log_alpha, -jnp.inf)
+            acc = col(S_LOGU) < log_alpha
+            x_new = jnp.where(acc, x_star, x)
+            lp_new = jnp.where(acc, lps, lp)
+            xh_ref[g] = x_new
+            lph_ref[g, :] = lp_new.reshape(-1)
+            acc_ref[g, :] = acc.reshape(-1).astype(jnp.int32)
+            return x_new, lp_new
 
-        x_star, log_jac, _ = propose_block(
-            x, rows_ref[0], um, ue, eps,
-            scal[:, S_DELTA:S_DELTA + 1],
-            scal[:, S_CR:S_CR + 1],
-            scal[:, S_GS:S_GS + 1],
-            scal[:, S_SNK:S_SNK + 1],
-            scal[:, S_GJUMP:S_GJUMP + 1],
-            n_pairs, d_true, b, b_star)
-
-        lps = closed_fn(x_star, *consts)          # [BC, 1]
-        # Metropolis-with-Jacobian accept; NaN/-inf proposals always
-        # reject (same guard as samplers/dream.py step)
-        log_alpha = jnp.minimum(0.0, lps - lp + log_jac)
-        log_alpha = jnp.where(jnp.isfinite(lps), log_alpha, -jnp.inf)
-        acc = scal[:, S_LOGU:S_LOGU + 1] < log_alpha
-        x_new = jnp.where(acc, x_star, x)
-        lp_new = jnp.where(acc, lps, lp)
-
-        x_scr[:] = x_new
-        lp_scr[:] = jnp.broadcast_to(lp_new, lp_scr.shape)
-        xh_ref[0] = x_new
-        lane = jax.lax.broadcasted_iota(jnp.int32, lp_scr.shape, 1)
-        aux_ref[0] = jnp.where(
-            lane == 0, lp_new,
-            jnp.where(lane == 1, acc.astype(x.dtype), 0.0))
+        lax.fori_loop(0, n_gens, generation,
+                      (x0_ref[...], lp0_ref[...][:, None]))
 
     return kernel
 
@@ -238,113 +160,68 @@ def _make_kernel(closed_fn, const_shapes, n_pairs, d_true, b, b_star,
 @functools.partial(
     jax.jit,
     static_argnames=("log_prob_block", "n_pairs", "d_true", "b", "b_star",
-                     "block_chains", "interpret", "rng"))
+                     "interpret"))
 def fused_chunk_pallas(x0, logp0, rows, u_mask, u_e, eps, scal,
                        log_prob_block, n_pairs, d_true, b, b_star,
-                       block_chains=256, interpret=False,
-                       rng="stream", seeds=None, test_bits=None):
+                       interpret=None):
     """Advance G generations in one kernel launch.
 
     x0 [n, d]; logp0 [n]; rows [G, n, k, d] pregathered archive rows;
-    u_mask/u_e/eps [G, n, d]; scal [G, n, 6] packed per-chain scalars
-    (delta, cr, gamma_s, is_snooker, gamma_jump, log_u_accept).
+    u_mask/u_e/eps [G, n, d]; scal [G, n, 6] per-chain scalars (delta,
+    cr, gamma_s, is_snooker, gamma_jump, log_u_accept).
     log_prob_block: hashable callable, ``[BC, Dp] -> [BC, 1]`` on
-    zero-padded lanes. Returns (x_hist [G, n, d], logp_hist [G, n],
-    accepted [G, n] bool).
-
-    rng="kernel": generate u_mask/u_e/eps INSIDE the kernel from the
-    TPU hardware PRNG instead of streaming them — pass ``u_mask=u_e=
-    eps=None`` and ``seeds`` [G] int32 (one word per generation; the
-    chain-block id folds in in-kernel). Removes the dominant XLA-side
-    prep work and 3 of 6 streamed operands; the price is streams that
-    are NOT bit-identical to the per-generation engine (distributions
-    unchanged — same uniform bit-trick + inverse-erf conversions,
-    different bit source). ``test_bits`` (three uint32 [G, n, d]
-    blocks) substitutes recorded bits for the PRNG so interpret-mode
-    tests cover the identical conversion code (the interpret PRNG stub
-    returns zeros).
+    zero-padded columns. ``interpret=None`` lets ops/route.py decide
+    (interpret on the CPU, Triton on the GPU). Returns (x_hist
+    [G, n, d], logp_hist [G, n], accepted [G, n] bool).
     """
     G, n, k, d = rows.shape
     dtype = x0.dtype
-    if rng == "kernel" and dtype != jnp.float32:
-        raise ValueError("rng='kernel' is float32-only")
-    bc = min(block_chains, round_up(n, 8))
+    if interpret is None:
+        interpret = interpret_mode()
+    bc = min(BLOCK_CHAINS, next_pow2(n))
     n_p = round_up(n, bc)
-    d_p = round_up(d, _LANE)
+    d_p = next_pow2(d)
 
     def pad_gnd(a, fill=0.0):
         return jnp.pad(a, ((0, 0), (0, n_p - n), (0, d_p - d)),
                        constant_values=fill)
 
     x0_p = jnp.pad(x0, ((0, n_p - n), (0, d_p - d)))
-    lp0_p = jnp.pad(
-        jnp.broadcast_to(logp0[:, None], (n, _LANE)), ((0, n_p - n), (0, 0)))
+    lp0_p = jnp.pad(logp0, (0, n_p - n))
     rows_p = jnp.pad(rows, ((0, 0), (0, n_p - n), (0, 0), (0, d_p - d)))
-    scal_p = jnp.pad(scal, ((0, 0), (0, n_p - n),
-                            (0, _LANE - scal.shape[2])))
+    # per-chain scalars chain-minor, so each scalar row loads contiguously
+    scal_p = jnp.pad(jnp.swapaxes(scal, 1, 2), ((0, 0), (0, 0),
+                                                (0, n_p - n)))
 
-    nb = n_p // bc
-    grid = (nb, G)
-    gnd = pl.BlockSpec((1, bc, d_p), lambda nb_, g_: (g_, nb_, 0),
-                       memory_space=pltpu.VMEM)
-
-    closed_fn, consts_2d, const_shapes, const_specs = hoist_target_consts(
+    closed_fn, consts, const_specs = hoist_target_consts(
         log_prob_block, bc, d_p, dtype)
 
-    scal_spec = pl.BlockSpec((1, bc, _LANE), lambda nb_, g_: (g_, nb_, 0),
-                             memory_space=pltpu.VMEM)
-    base_specs = [
-        pl.BlockSpec((bc, d_p), lambda nb_, g_: (nb_, 0),
-                     memory_space=pltpu.VMEM),             # x0
-        pl.BlockSpec((bc, _LANE), lambda nb_, g_: (nb_, 0),
-                     memory_space=pltpu.VMEM),             # lp0
-        pl.BlockSpec((1, bc, k, d_p), lambda nb_, g_: (g_, nb_, 0, 0),
-                     memory_space=pltpu.VMEM),             # rows
+    gnd = pl.BlockSpec((G, bc, d_p), lambda i: (0, i, 0))
+    gn = pl.BlockSpec((G, bc), lambda i: (0, i))
+    in_specs = [
+        pl.BlockSpec((bc, d_p), lambda i: (i, 0)),                # x0
+        pl.BlockSpec((bc,), lambda i: (i,)),                      # lp0
+        pl.BlockSpec((G, bc, k, d_p), lambda i: (0, i, 0, 0)),    # rows
+        gnd, gnd, gnd,                                   # u_mask/u_e/eps
+        pl.BlockSpec((G, N_SCAL, bc), lambda i: (0, 0, i)),       # scal
     ]
-    if rng == "stream":
-        in_specs = base_specs + [gnd, gnd, gnd, scal_spec]  # um/ue/eps
-        operands = [x0_p, lp0_p, rows_p, pad_gnd(u_mask, fill=2.0),
-                    pad_gnd(u_e), pad_gnd(eps), scal_p]
-    else:
-        # whole [G, 1] table to every cell (SMEM blocks must cover the
-        # array); the kernel picks its generation's word by program_id
-        seed_spec = pl.BlockSpec((G, 1), lambda nb_, g_: (0, 0),
-                                 memory_space=pltpu.SMEM)
-        seeds_i = (seeds if seeds.dtype == jnp.int32
-                   else jax.lax.bitcast_convert_type(seeds, jnp.int32))
-        in_specs = base_specs + [scal_spec, seed_spec]
-        operands = [x0_p, lp0_p, rows_p, scal_p,
-                    jnp.reshape(seeds_i, (G, 1))]
-        if test_bits is not None:
-            bit_spec = pl.BlockSpec(
-                (1, bc, d_p), lambda nb_, g_: (g_, nb_, 0),
-                memory_space=pltpu.VMEM)
-            in_specs += [bit_spec] * 3
-            operands += [pad_gnd(tb, fill=0) for tb in test_bits]
-
-    xh, aux = pl.pallas_call(
-        _make_kernel(closed_fn, const_shapes, n_pairs, d_true, float(b),
-                     float(b_star), rng=rng,
-                     test_bits=test_bits is not None),
-        grid=grid,
-        in_specs=in_specs + list(const_specs),
-        out_specs=[
-            gnd,                                               # x hist
-            pl.BlockSpec((1, bc, _LANE), lambda nb_, g_: (g_, nb_, 0),
-                         memory_space=pltpu.VMEM),             # aux
-        ],
+    xh, lph, acc = pl.pallas_call(
+        _make_kernel(closed_fn, len(consts), G, n_pairs, k, d_true,
+                     float(b), float(b_star)),
+        grid=(n_p // bc,),
+        in_specs=in_specs + const_specs,
+        out_specs=[gnd, gn, gn],
         out_shape=[
             jax.ShapeDtypeStruct((G, n_p, d_p), dtype),
-            jax.ShapeDtypeStruct((G, n_p, _LANE), dtype),
+            jax.ShapeDtypeStruct((G, n_p), dtype),
+            jax.ShapeDtypeStruct((G, n_p), jnp.int32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((bc, d_p), dtype),
-            pltpu.VMEM((bc, _LANE), dtype),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=NUM_STAGES),
         interpret=interpret,
-    )(*operands, *consts_2d)
+        name="dream_fused_chunk",
+    )(x0_p, lp0_p, rows_p, pad_gnd(u_mask, fill=2.0), pad_gnd(u_e),
+      pad_gnd(eps), scal_p, *consts)
 
-    return (xh[:, :n, :d], aux[:, :n, 0],
-            aux[:, :n, 1] > 0.5)
+    return xh[:, :n, :d], lph[:, :n], acc[:, :n] > 0

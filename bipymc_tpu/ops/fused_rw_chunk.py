@@ -1,12 +1,12 @@
 """Fused multi-step random-walk (MH/DR/DRAM) chunk: K steps in ONE kernel.
 
 The single-chain DRAM hot loop (SURVEY.md §5.1; reference ``Dram.run_mcmc``
-Python loop) is the most dispatch-bound path in the framework: per step the
-useful math is ~1µs of VPU work behind a full launch round-trip, and unlike
-the ensemble samplers there is no batch axis to amortise it. This module
-applies the fused-chunk treatment proven on DREAM-zs (ops/fused_chunk.py):
-one ``pallas_call`` advances K steps with (theta, logp) carried in VMEM
-scratch across a sequential grid.
+Python loop) is the most launch-bound path in the framework: per step the
+useful math is a few hundred flops behind a full launch round-trip, and
+unlike the ensemble samplers there is no batch axis to amortise it. This
+module applies the fused-chunk treatment of DREAM-zs (ops/fused_chunk.py):
+one ``pallas_call`` advances K steps; the grid runs over chain blocks and
+a ``fori_loop`` inside each block carries (theta, logp) from step to step.
 
 What makes the RW family fusable — division of labour per chunk:
 
@@ -27,214 +27,166 @@ What makes the RW family fusable — division of labour per chunk:
   of the raw draws only).
 - Pallas (this kernel), per step: y₁ = θ + dy₁, the target log-density
   (inlined ``log_prob_block``), and for DR the second stage y₂ = θ + dy₂
-  with the exact Green–Mira acceptance on packed scalars; Metropolis
-  select; history out.
+  with the exact Green–Mira acceptance; Metropolis select; history out.
 
 Trajectories are bit-identical in randomness to the per-step engine and
-match to float re-association in math (tests/test_fused_rw.py pins exact
-stream/selection agreement in interpret mode).
+match to float re-association in math (tests/test_fused_rw.py).
 """
 
 import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-# the SAME log1mexp the per-step engine uses: elementwise jnp only, so
-# it traces inside the Mosaic kernel body, and a numerical tweak cannot
+# the SAME log1mexp the per-step engine uses, so a numerical tweak cannot
 # desynchronise the two engines' Green–Mira acceptance
 # (tests/test_fused_rw.py pins the agreement)
 from bipymc_tpu.core.numerics import log1mexp as _log1mexp
 from bipymc_tpu.ops.fused_chunk import hoist_target_consts
-from bipymc_tpu.ops.tiling import round_up
+from jax.experimental.pallas import triton as pl_triton
 
-_LANE = 128
+from bipymc_tpu.ops.route import interpret_mode, next_pow2, round_up
 
-# scal lane assignments ([K, n, LANE] per-chain packed scalars)
-S_SZ1, S_SW, S_LU1, S_LU2 = 0, 1, 2, 3
+# per-chain scalar rows of ``scal`` ([K, 4, n] inside the wrapper)
+S_SZ1, S_SW, S_LU1, S_LU2 = range(4)
+N_SCAL = 4
+
+# chains per program and Triton launch parameters, the fastest of a sweep
+# of the runner at 256 chains × d=100 on an H100 (PERF.md); at 1-4
+# chains the choice made no measurable difference
+BLOCK_CHAINS = 8
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
-def _make_kernel(closed_fn, const_shapes, delayed, spc):
-    nc = len(const_shapes)
+def _make_kernel(closed_fn, n_consts, n_steps, delayed):
 
     def kernel(*refs):
-        # MH/AM (delayed=False) kernels take NO dy2 operand: the stage-2
-        # displacements are dead there, and an unread ref would still be
-        # DMA'd into VMEM every grid cell
         if delayed:
             x0_ref, lp0_ref, dy1_ref, dy2_ref, scal_ref = refs[:5]
             rest = refs[5:]
         else:
             x0_ref, lp0_ref, dy1_ref, scal_ref = refs[:4]
-            dy2_ref = None
             rest = refs[4:]
-        const_refs = rest[:nc]
-        xh_ref, aux_ref, x_scr, lp_scr = rest[nc:]
-        consts = [cref[:] if len(shape) >= 2 else cref[:].reshape(shape)
-                  for cref, shape in zip(const_refs, const_shapes)]
-        k = pl.program_id(1)
+        const_refs = rest[:n_consts]
+        xh_ref, lph_ref, acc_ref, stage_ref = rest[n_consts:]
 
-        @pl.when(k == 0)
-        def _init():
-            x_scr[:] = x0_ref[:]
-            lp_scr[:] = lp0_ref[:]
+        def step(s, carry):
+            x, lp = carry                         # [BC, Dp], [BC, 1]
 
-        x = x_scr[:]                              # [BC, Dp]
-        lp = lp_scr[:, 0:1]                       # [BC, 1]
+            def col(c):
+                return scal_ref[s, c, :][:, None]  # [BC, 1]
 
-        # spc steps per grid cell: one DMA latency amortised over spc
-        # steps (the per-step blocks are tiny — at n_chains=1 the cell's
-        # pipeline is latency-bound, not bandwidth-bound). Statically
-        # unrolled; identical math for every spc.
-        for s in range(spc):
-            scal = scal_ref[0, s]                 # [BC, LANE]
-
-            # ---- stage 1: y₁ = θ + L z₁ (displacement precomputed) ------
-            y1 = x + dy1_ref[0, s]
-            l1 = closed_fn(y1, *consts)           # [BC, 1]
+            # ---- stage 1: y₁ = θ + L z₁ (displacement precomputed) ----
+            y1 = x + dy1_ref[s]
+            l1 = closed_fn(y1, *const_refs)       # [BC, 1]
             log_a1 = jnp.minimum(0.0, l1 - lp)
-            # non-finite hard-reject, sanitizing LOG_A1 itself (round-5
-            # review: guarding only the accept bit leaves log_a1 = 0 in
-            # the Green–Mira denominator below, and a +inf l1 then makes
-            # stage 2 accept almost surely). Identical math to
-            # samplers/rw.py / flowmh.py. Elementwise — traces in Mosaic.
+            # non-finite hard-reject, sanitizing LOG_A1 itself: guarding
+            # only the accept bit would leave log_a1 = 0 in the
+            # Green–Mira denominator below, and a +inf l1 would then make
+            # stage 2 accept almost surely. Identical math to
+            # samplers/rw.py / flowmh.py.
             log_a1 = jnp.where(jnp.isfinite(l1), log_a1,
                                jnp.full_like(log_a1, -jnp.inf))
-            acc1 = scal[:, S_LU1:S_LU1 + 1] < log_a1
+            acc1 = col(S_LU1) < log_a1
 
             if delayed:
-                # ---- stage 2: Green–Mira in whitened coordinates --------
-                y2 = x + dy2_ref[0, s]
-                l2 = closed_fn(y2, *consts)
+                # ---- stage 2: Green–Mira in whitened coordinates ------
+                y2 = x + dy2_ref[s]
+                l2 = closed_fn(y2, *const_refs)
                 log_a1_rev = jnp.minimum(0.0, l1 - l2)
-                lq_diff = -0.5 * (scal[:, S_SW:S_SW + 1]
-                                  - scal[:, S_SZ1:S_SZ1 + 1])
+                lq_diff = -0.5 * (col(S_SW) - col(S_SZ1))
                 log_num = l2 + _log1mexp(log_a1_rev)
                 log_den = lp + _log1mexp(log_a1)
                 log_a2 = jnp.minimum(0.0, log_num + lq_diff - log_den)
                 log_a2 = jnp.where(jnp.isfinite(l2), log_a2,
                                    jnp.full_like(log_a2, -jnp.inf))
                 acc2 = jnp.logical_and(jnp.logical_not(acc1),
-                                       scal[:, S_LU2:S_LU2 + 1] < log_a2)
+                                       col(S_LU2) < log_a2)
             else:
                 y2, l2 = y1, l1
                 acc2 = jnp.zeros_like(acc1)
 
             x = jnp.where(acc1, y1, jnp.where(acc2, y2, x))
             lp = jnp.where(acc1, l1, jnp.where(acc2, l2, lp))
-            stage = jnp.where(acc1, 1.0, jnp.where(acc2, 2.0, 0.0))
+            stage = jnp.where(acc1, 1, jnp.where(acc2, 2, 0))
 
-            xh_ref[0, s] = x
-            lane = jax.lax.broadcasted_iota(
-                jnp.int32, (x.shape[0], _LANE), 1)
-            acc_f = jnp.logical_or(acc1, acc2).astype(x.dtype)
-            aux_ref[0, s] = jnp.where(
-                lane == 0, lp,
-                jnp.where(lane == 1, acc_f,
-                          jnp.where(lane == 2, stage, 0.0)))
+            xh_ref[s] = x
+            lph_ref[s, :] = lp.reshape(-1)
+            acc_ref[s, :] = jnp.logical_or(acc1, acc2).reshape(-1).astype(
+                jnp.int32)
+            stage_ref[s, :] = stage.reshape(-1).astype(jnp.int32)
+            return x, lp
 
-        x_scr[:] = x
-        lp_scr[:] = jnp.broadcast_to(lp, lp_scr.shape)
+        lax.fori_loop(0, n_steps, step,
+                      (x0_ref[...], lp0_ref[...][:, None]))
 
     return kernel
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("log_prob_block", "delayed", "block_chains",
-                     "interpret", "steps_per_cell"))
+    static_argnames=("log_prob_block", "delayed", "interpret"))
 def fused_rw_chunk_pallas(x0, logp0, dy1, dy2, scal, log_prob_block,
-                          delayed, block_chains=256, interpret=False,
-                          steps_per_cell=1):
+                          delayed, interpret=None):
     """Advance K random-walk steps in one kernel launch.
 
     x0 [n, d]; logp0 [n]; dy1/dy2 [K, n, d] precomputed stage-1/2
     proposal displacements (L z₁, (L/√κ) z₂ against the chunk's frozen
-    Cholesky); scal [K, n, 4] packed per-chain scalars
-    (‖z₁‖², ‖z₁ − z₂/√κ‖², log u₁, log u₂). With ``delayed=False`` pass
-    ``dy2=None`` and zero the unused scal lanes — the kernel then takes
-    no stage-2 operand (no dead DMA), and only the log u₁ lane is read.
-    log_prob_block: hashable ``[BC, Dp] -> [BC, 1]`` on zero-padded lanes
-    (ops/fused_chunk.block_logp_from_scalar). steps_per_cell: steps
-    handled per grid cell (must divide K; identical results for every
-    value — it only moves DMA-latency amortisation). Returns
-    (x_hist [K, n, d], logp_hist [K, n], accepted [K, n] bool,
-    stage [K, n] int32).
+    Cholesky); scal [K, n, 4] per-chain scalars (‖z₁‖², ‖z₁ − z₂/√κ‖²,
+    log u₁, log u₂). With ``delayed=False`` pass ``dy2=None``; only the
+    log u₁ column is read. log_prob_block: hashable ``[BC, Dp] ->
+    [BC, 1]`` on zero-padded columns (ops/fused_chunk.py).
+    ``interpret=None`` lets ops/route.py decide. Returns (x_hist
+    [K, n, d], logp_hist [K, n], accepted [K, n] bool, stage [K, n]
+    int32).
     """
     K, n, d = dy1.shape
     dtype = x0.dtype
-    spc = int(steps_per_cell)
-    if K % spc != 0:
-        raise ValueError(f"steps_per_cell={spc} must divide K={K}")
-    bc = min(block_chains, round_up(n, 8))
+    if interpret is None:
+        interpret = interpret_mode()
+    bc = min(BLOCK_CHAINS, next_pow2(n))
     n_p = round_up(n, bc)
-    d_p = round_up(d, _LANE)
-    kc = K // spc
+    d_p = next_pow2(d)
 
     def pad_knd(a):
-        a = jnp.pad(a, ((0, 0), (0, n_p - n), (0, d_p - d)))
-        return a.reshape(kc, spc, n_p, d_p)
+        return jnp.pad(a, ((0, 0), (0, n_p - n), (0, d_p - d)))
 
-    x0_p = jnp.pad(x0, ((0, n_p - n), (0, d_p - d)))
-    lp0_p = jnp.pad(
-        jnp.broadcast_to(logp0[:, None], (n, _LANE)), ((0, n_p - n), (0, 0)))
-    scal_p = jnp.pad(scal, ((0, 0), (0, n_p - n),
-                            (0, _LANE - scal.shape[2]))).reshape(
-                                kc, spc, n_p, _LANE)
-
-    nb = n_p // bc
-    grid = (nb, kc)
-    knd = pl.BlockSpec((1, spc, bc, d_p), lambda nb_, k_: (k_, 0, nb_, 0),
-                       memory_space=pltpu.VMEM)
-
-    # hoist target-closure constants into kernel inputs (Pallas kernels
-    # cannot capture array consts)
-    closed_fn, consts_2d, const_shapes, const_specs = hoist_target_consts(
+    closed_fn, consts, const_specs = hoist_target_consts(
         log_prob_block, bc, d_p, dtype)
 
-    scal_spec = pl.BlockSpec((1, spc, bc, _LANE),
-                             lambda nb_, k_: (k_, 0, nb_, 0),
-                             memory_space=pltpu.VMEM)
-    in_specs = [
-        pl.BlockSpec((bc, d_p), lambda nb_, k_: (nb_, 0),
-                     memory_space=pltpu.VMEM),              # x0
-        pl.BlockSpec((bc, _LANE), lambda nb_, k_: (nb_, 0),
-                     memory_space=pltpu.VMEM),              # lp0
-        knd,                                                # dy1
-    ]
-    # delayed=False kernels take no dy2 operand at all — the stage-2
-    # displacements are dead and would otherwise be DMA'd per grid cell
-    operands = [x0_p, lp0_p, pad_knd(dy1)]
+    knd = pl.BlockSpec((K, bc, d_p), lambda i: (0, i, 0))
+    kn = pl.BlockSpec((K, bc), lambda i: (0, i))
+    in_specs = [pl.BlockSpec((bc, d_p), lambda i: (i, 0)),       # x0
+                pl.BlockSpec((bc,), lambda i: (i,)),             # lp0
+                knd]                                             # dy1
+    operands = [jnp.pad(x0, ((0, n_p - n), (0, d_p - d))),
+                jnp.pad(logp0, (0, n_p - n)), pad_knd(dy1)]
     if delayed:
-        in_specs.append(knd)                                # dy2
+        in_specs.append(knd)                                     # dy2
         operands.append(pad_knd(dy2))
-    in_specs.append(scal_spec)                              # scal
-    operands.append(scal_p)
+    in_specs.append(pl.BlockSpec((K, N_SCAL, bc), lambda i: (0, 0, i)))
+    operands.append(jnp.pad(jnp.swapaxes(scal, 1, 2),
+                            ((0, 0), (0, 0), (0, n_p - n))))
 
-    xh, aux = pl.pallas_call(
-        _make_kernel(closed_fn, const_shapes, bool(delayed), spc),
-        grid=grid,
-        in_specs=in_specs + list(const_specs),
-        out_specs=[
-            knd,                                            # x hist
-            scal_spec,                                      # aux
-        ],
+    xh, lph, acc, stage = pl.pallas_call(
+        _make_kernel(closed_fn, len(consts), K, bool(delayed)),
+        grid=(n_p // bc,),
+        in_specs=in_specs + const_specs,
+        out_specs=[knd, kn, kn, kn],
         out_shape=[
-            jax.ShapeDtypeStruct((kc, spc, n_p, d_p), dtype),
-            jax.ShapeDtypeStruct((kc, spc, n_p, _LANE), dtype),
+            jax.ShapeDtypeStruct((K, n_p, d_p), dtype),
+            jax.ShapeDtypeStruct((K, n_p), dtype),
+            jax.ShapeDtypeStruct((K, n_p), jnp.int32),
+            jax.ShapeDtypeStruct((K, n_p), jnp.int32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((bc, d_p), dtype),
-            pltpu.VMEM((bc, _LANE), dtype),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=NUM_STAGES),
         interpret=interpret,
-    )(*operands, *consts_2d)
+        name="rw_fused_chunk",
+    )(*operands, *consts)
 
-    xh = xh.reshape(K, n_p, d_p)
-    aux = aux.reshape(K, n_p, _LANE)
-    return (xh[:, :n, :d], aux[:, :n, 0],
-            aux[:, :n, 1] > 0.5, aux[:, :n, 2].astype(jnp.int32))
+    return xh[:, :n, :d], lph[:, :n], acc[:, :n] > 0, stage[:, :n]

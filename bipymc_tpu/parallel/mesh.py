@@ -1,7 +1,7 @@
 """Device mesh construction for chain-level data parallelism.
 
 The reference's only parallelism strategy is chain-level data parallelism
-over an mpi4py pool (SURVEY.md §3.1). Its TPU-native equivalent: a 1-D
+over an mpi4py pool (SURVEY.md §3.1). Its accelerator-native equivalent: a 1-D
 ``jax.sharding.Mesh`` with a ``"chains"`` axis; the population's chain axis
 is sharded over it and XLA lowers the step's collectives onto ICI. For
 multi-host pods, call ``jax.distributed.initialize()`` before building the

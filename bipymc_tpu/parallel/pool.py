@@ -1,4 +1,5 @@
-"""ChainPool — the TPU-native replacement for the reference's mpi4py pool.
+"""ChainPool — the accelerator-native replacement for the reference's mpi4py
+pool.
 
 The reference farms per-chain log-likelihood evaluations over MPI ranks and
 gathers/broadcasts population state every generation (SURVEY.md §3.2, §5.2).
@@ -97,8 +98,8 @@ def _default_position(state):
 
     Module-level on purpose: the runner cache keys on the position_fn's
     identity, and a per-call ``lambda s: s.x`` made every ``run_mcmc_until``
-    call a cache miss — re-tracing + full XLA recompilation each time
-    (round-2 verdict finding #1). Mirrors ``_rw_position`` /
+    call a cache miss — re-tracing + full XLA recompilation each time. Mirrors
+    ``_rw_position`` /
     ``_pt_cold_position`` in samplers/api.py.
     """
     return state.x

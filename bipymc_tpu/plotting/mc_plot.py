@@ -2,7 +2,7 @@
 
 Reference capability (SURVEY.md §3 "Plotting", `bipymc/mc_plot.py` [U]):
 trace plots, marginal histograms, pairwise/corner plots, acceptance
-diagnostics. matplotlib is imported lazily (Agg backend) so headless / TPU
+diagnostics. matplotlib is imported lazily (Agg backend) so headless
 jobs without display never pay for it.
 
 All functions accept ``chains`` as [M, N, d] (``sampler.super_chain``) or
@@ -13,7 +13,11 @@ import numpy as np
 
 
 def _mpl():
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        raise ImportError("bipymc_tpu.plotting needs the optional "
+                          "matplotlib package") from None
     matplotlib.use("Agg", force=False)
     import matplotlib.pyplot as plt
     return plt
@@ -174,7 +178,7 @@ def plot_acceptance(accept_fractions, path=None):
 
 def plot_mode_occupancy(history, means, path=None):
     """Chains-per-mode over time for a mixture run (round-3 honesty
-    diagnostics, docs/ROUND3.md §2): a stacked occupancy trace makes a
+    diagnostics): a stacked occupancy trace makes a
     population silently collapsing into one basin visible at a glance.
 
     history: [M, T, d] kept positions; means: [k, d] mode centres.
@@ -203,8 +207,8 @@ def plot_mode_occupancy(history, means, path=None):
 
 
 def plot_sbc_ranks(ranks, n_draws=None, n_bins=8, labels=None, path=None):
-    """SBC rank histograms with a 99% uniform band (utils/sbc.py,
-    docs/ROUND3.md §27): calibrated kernels fill the band flat; a ∪
+    """SBC rank histograms with a 99% uniform band (utils/sbc.py): calibrated
+    kernels fill the band flat; a ∪
     shape means the sampled posterior is too narrow, a ∩ shape too wide,
     a slope means biased location.
 

@@ -13,7 +13,7 @@ softplus for unconstrained optimization. The entropy is exact, so the
 only Monte-Carlo noise is the energy term: ``n_mc`` reparameterized
 draws per step, averaged.
 
-TPU shape: one Adam step is a [n_mc, d] batch of target evals +
+Accelerator shape: one Adam step is a [n_mc, d] batch of target evals +
 `jax.grad` through them — a fixed-shape fused program; the whole fit is
 one `lax.scan`, and ``n_restarts`` independent fits (different init
 draws and MC streams) run as ONE vmapped program, so the restart axis
@@ -168,7 +168,7 @@ def make_step(log_prob: Callable, cfg: AdviConfig) -> Callable:
         mu_n, m0, v0 = upd(s.mu, s.m[0], s.v[0], g[0])
         om_n, m1, v1 = upd(s.omega, s.m[1], s.v[1], g[1])
         # reject non-finite steps outright (keep params AND moments —
-        # same policy as gp.optimize, docs/ROUND3.md §17)
+        # same policy as gp.optimize)
         ok = (jnp.all(jnp.isfinite(mu_n)) & jnp.all(jnp.isfinite(om_n)))
         new = AdviState(
             mu=jnp.where(ok, mu_n, s.mu),

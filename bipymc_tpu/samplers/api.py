@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from bipymc_tpu.core.scan import run_scan_thinned
+from bipymc_tpu.ops.route import interpret_mode
 from bipymc_tpu.samplers import (rw, chees, da, demc, dream, enslice,
                                  eslice, flowmh, hmc, nuts, stretch,
                                  tempering)
@@ -185,7 +186,7 @@ class McmcSampler:
         int32 so continuations at any offset reuse it. All three fused
         families (_RwSampler, DreamZs, FlowMh) route here, so the
         round-2 "fresh closure defeats the jit cache" bug class lives
-        in exactly one place (round-4 review)."""
+        in exactly one place."""
         if n not in cache:
             cache[n] = jax.jit(lambda s, k, t, _n=n: runner(s, k, _n, t))
         return cache[n](state, k_run, jnp.asarray(t0, jnp.int32))
@@ -279,9 +280,9 @@ class _RwSampler(McmcSampler):
         kernel, K = ``adapt_interval`` for the adaptive family, AM
         adaptation replayed bit-exactly outside the kernel). Same bits
         stream and accept decisions as the per-step engine; positions
-        match to float re-association (docs/design.md §10g). Requires a
-        Mosaic-expressible target (see ops/fused_chunk.
-        block_logp_from_scalar); float32 only."""
+        match to float re-association. On the GPU the in-kernel target
+        is ``log_prob_block``, a padded block form (models/targets.py
+        ``*_block``); construction raises without one."""
         super().__init__(log_like_fn, seed=seed, dtype=dtype)
         self.n_chains = int(n_chains)
         self.cfg = self._make_config(**config_kw)
@@ -294,9 +295,7 @@ class _RwSampler(McmcSampler):
         if self.fused:
             from bipymc_tpu.samplers.rw_fused import check_rw_fusable
             check_rw_fusable(self.cfg)
-            if dtype != jnp.float32:
-                raise ValueError("fused=True is float32-only (the fused "
-                                 "kernel carries VMEM f32 scratch)")
+            _check_fused_target(log_prob_block)
 
     @property
     def _fused_K(self):
@@ -1052,17 +1051,24 @@ class EnsembleSlice(McmcSampler):
         return {k: np.asarray(v) for k, v in info.items()}
 
 
-def _check_fused_dtype(dtype):
-    """Fail fused=True + float64 on TPU at construction: the TPU has no
-    f64 datapath, so the Mosaic compile would die mid-run with an
-    opaque error after burn-in already advanced (the same
-    construction-time policy as fused_rng='kernel'). Off-TPU the fused
-    engines run in interpret mode, where f64 is fine."""
-    if dtype == jnp.float64 and jax.default_backend() == "tpu":
+def _check_fused_target(log_prob_block):
+    """Fail ``fused=True`` at construction where its kernel cannot run.
+
+    On the GPU the fused kernels compile through Pallas-Triton, which
+    cannot lower the slicing and batched products a vmapped scalar
+    target produces, so the in-kernel target must be a padded block
+    form (``log_prob_block=``, models/targets.py ``*_block``). Raising
+    here — not mid-run — keeps a sampler from stopping half-advanced
+    with burn-in stored and its fused segment dead. On the CPU the
+    kernels run in interpret mode and wrap the scalar target; any other
+    platform raises in ops/route.py.
+    """
+    if log_prob_block is None and not interpret_mode():
         raise ValueError(
-            "fused=True with dtype=float64 cannot run on the TPU "
-            "(no f64 datapath in Mosaic kernels); use dtype=float32 "
-            "or the per-generation engine")
+            "fused=True on the GPU needs log_prob_block=, a padded block "
+            "form of the target (e.g. models.gaussian_mixture_block): a "
+            "scalar target does not lower through Triton. Use "
+            "fused=False for the per-generation engine.")
 
 
 class EnsembleSampler(McmcSampler):
@@ -1071,57 +1077,13 @@ class EnsembleSampler(McmcSampler):
     (samplers/stretch.py). Use n_chains ≥ 2d+2 walkers."""
 
     def __init__(self, log_like_fn, n_chains=32, seed=0, dtype=jnp.float32,
-                 mesh=None, fused=False, log_prob_block=None, **config_kw):
-        """``fused=True`` routes runs through the fused multi-generation
-        stretch engine (samplers/stretch_fused.py: whole chunks of
-        generations per Pallas kernel, the complementary-walker gather
-        as an in-kernel one-hot MXU contraction). No archive and no
-        burn-in adaptation means EVERY segment fuses — no alignment
-        constraints; trajectories consume the per-generation engine's
-        exact random streams (accept decisions identical, positions to
-        float re-association). Single-device, ≤ 1024 walkers, and a
-        jnp-expressible (Mosaic-lowerable) target — see
-        ops/fused_stretch.py; ``log_prob_block`` optionally supplies a
-        hand-written lane-padded block target."""
+                 mesh=None, **config_kw):
         super().__init__(log_like_fn, seed=seed, dtype=dtype)
         self.n_chains = int(n_chains)
         self.cfg = stretch.StretchConfig(n_chains=self.n_chains,
                                          **config_kw)
         self.mesh = mesh
         _check_mesh_chains(mesh, self.n_chains)
-        self.fused = bool(fused)
-        self._log_prob_block = log_prob_block
-        self._fused_runner = None
-        self._fused_jits = {}
-        if self.fused:
-            if self.cfg.move != "stretch":
-                raise ValueError(
-                    "fused=True implements the stretch move only; use "
-                    "the per-generation engine for move="
-                    f"{self.cfg.move!r}")
-            if mesh is not None:
-                raise ValueError(
-                    "fused=True is single-device (the one-hot partner "
-                    "gather needs the whole population in one kernel "
-                    "cell); drop mesh= or use the per-generation engine")
-            from bipymc_tpu.ops.fused_stretch import MAX_WALKERS
-            if self.n_chains > MAX_WALKERS:
-                raise ValueError(
-                    f"fused=True supports <= {MAX_WALKERS} walkers; "
-                    f"got {self.n_chains}")
-            _check_fused_dtype(self.dtype)
-
-    def _fused(self, collect="all"):
-        # run_mcmc keeps positions (collect="all"); run_mcmc_until folds
-        # Welford moments inside the runner (collect="rhat") so the
-        # R̂-stop while_loop never holds a [chunk, n, d] history
-        attr = "_fused_runner" if collect == "all" else "_fused_rhat_runner"
-        if getattr(self, attr, None) is None:
-            from bipymc_tpu.samplers.stretch_fused import make_chunk_runner
-            setattr(self, attr, make_chunk_runner(
-                self.log_like_fn, self.cfg,
-                log_prob_block=self._log_prob_block, collect=collect))
-        return getattr(self, attr)
 
     def _ensure(self, theta_0, spread):
         return self._ensure_population(
@@ -1134,15 +1096,6 @@ class EnsembleSampler(McmcSampler):
     def run_mcmc(self, n_gens, theta_0=None, thin=1, spread=1.0,
                  progress_every=None):
         state, k_run = self._ensure(theta_0, spread)
-        if self.fused and thin == 1 and progress_every is None:
-            runner = self._fused()
-            if n_gens not in self._fused_jits:
-                self._fused_jits[n_gens] = jax.jit(
-                    lambda s, k, t: runner(s, k, n_gens, t))
-            final_state, history = self._fused_jits[n_gens](
-                state, k_run, jnp.asarray(self._steps_run, jnp.int32))
-            self._store(final_state, history, n_gens, thin=1)
-            return self
         final_state, history = self._pool_obj.run(
             state, k_run, n_gens, thin=thin, t0=self._steps_run,
             progress_every=progress_every)
@@ -1155,8 +1108,7 @@ class EnsembleSampler(McmcSampler):
         final_state, info = self._pool_obj.run_until(
             state, k_run, rhat_tol=rhat_tol, chunk=chunk,
             max_chunks=max_chunks, warmup_chunks=warmup_chunks,
-            t0=self._steps_run,
-            chunk_runner=self._fused("rhat") if self.fused else None)
+            t0=self._steps_run)
         self._final_state = jax.block_until_ready(final_state)
         self._steps_run += int(info["steps"])
         return {k: np.asarray(v) for k, v in info.items()}
@@ -1171,28 +1123,19 @@ class DreamZs(McmcSampler):
 
     def __init__(self, log_like_fn, n_chains=8, seed=0, dtype=jnp.float32,
                  mesh=None, archive_capacity=None, n_archive_init=None,
-                 fused=False, fused_rng="stream", fused_z_update=1,
-                 fused_gather="block", log_prob_block=None, **config_kw):
+                 fused=False, fused_z_update=1, log_prob_block=None,
+                 **config_kw):
         """``fused=True`` routes post-burn-in, archive-aligned steady-state
         generations through the fused multi-generation Pallas engine
         (samplers/dream_fused.py — one kernel per ``archive_thin``
-        generations, measured 2.3× the per-generation engine at the
-        256×100 headline config; works with ``mesh=`` too, one
-        all_gather per chunk). Burn-in, alignment remainders, and
-        ``thin != 1`` / ``progress_every`` runs stay on the per-generation
-        engine; trajectories consume the identical random streams either
-        way. Requires a replicated-archive configuration and a
-        jnp-expressible (Mosaic-lowerable) target; ``log_prob_block``
-        optionally supplies a hand-written lane-padded-block target
-        (ops/fused_chunk.py).
-
-        ``fused_rng="kernel"`` (TPU-only) additionally generates the
-        proposal randomness inside the kernel from the hardware PRNG —
-        measured 1.4–2.0× the default fused engine (docs/design.md
-        §10f). Runs remain deterministic given ``seed``, but the
-        streams are no longer bit-identical to ``fused=False`` (the
-        distributions are unchanged — injected-stream fidelity tests
-        don't apply to this mode, distributional ones do).
+        generations; works with ``mesh=`` too, one all_gather per
+        chunk). Burn-in, alignment remainders, and ``thin != 1`` /
+        ``progress_every`` runs stay on the per-generation engine;
+        trajectories consume the identical random streams either way.
+        Requires a replicated-archive configuration. On the GPU the
+        in-kernel target is ``log_prob_block``, a padded block form
+        (models/targets.py ``*_block``); construction raises without
+        one.
 
         ``fused_z_update=K`` publishes archive appends every K
         thin-blocks instead of every block, running K·archive_thin
@@ -1202,14 +1145,7 @@ class DreamZs(McmcSampler):
         K > 1 trajectories are not bit-identical to ``fused=False``
         (proposals inside a super-block sample a Z stale by up to
         K·archive_thin generations). Requires K·n_chains ≤ archive
-        capacity. See samplers/dream_fused.make_chunk_runner.
-
-        ``fused_gather`` selects the archive row-gather lowering inside
-        the fused engine: ``"block"`` (one XLA gather per super-block),
-        ``"pergen"`` (per-generation gathers), or ``"kernel"`` (the
-        capacity-independent HBM-DMA kernel, ops/gather_rows.py — the
-        XLA lowerings can cost O(archive capacity) on TPU). Values are
-        identical; only speed differs."""
+        capacity. See samplers/dream_fused.make_chunk_runner."""
         super().__init__(log_like_fn, seed=seed, dtype=dtype)
         self.n_chains = int(n_chains)
         self.cfg = self._config_builder(self.n_chains, **config_kw)
@@ -1218,14 +1154,7 @@ class DreamZs(McmcSampler):
         self.archive_capacity = archive_capacity
         self.n_archive_init = n_archive_init
         self.fused = bool(fused)
-        self.fused_rng = fused_rng
         self.fused_z_update = int(fused_z_update)
-        self.fused_gather = fused_gather
-        from bipymc_tpu.samplers.dream_fused import _GATHER_MODES
-        if fused_gather not in _GATHER_MODES:
-            raise ValueError(
-                f"fused_gather={fused_gather!r}: expected one of "
-                f"{_GATHER_MODES}")
         if self.fused_z_update < 1:
             raise ValueError(
                 f"fused_z_update={fused_z_update}: must be >= 1")
@@ -1233,22 +1162,6 @@ class DreamZs(McmcSampler):
             raise ValueError(
                 "fused_z_update > 1 is a fused-engine execution knob; "
                 "pass fused=True")
-        if fused_gather != "block" and not self.fused:
-            raise ValueError(
-                "fused_gather is a fused-engine execution knob; pass "
-                "fused=True (the per-generation engine's equivalent is "
-                "the DreamConfig field gather_kernel=True)")
-        if fused_rng not in ("stream", "kernel"):
-            raise ValueError(
-                f"fused_rng={fused_rng!r}: expected 'stream' or 'kernel'")
-        if (fused_rng == "kernel" and fused
-                and jax.default_backend() != "tpu"):
-            # fail at construction: raising mid-run would leave the
-            # sampler half-advanced (burn-in stored, fused segment dead)
-            raise ValueError(
-                "fused_rng='kernel' needs the TPU hardware PRNG "
-                f"(backend is {jax.default_backend()!r}); use the "
-                "default fused_rng='stream' off-TPU")
         self._log_prob_block = log_prob_block
         self._fused_runner = None
         self._fused_runner_local = None
@@ -1256,7 +1169,7 @@ class DreamZs(McmcSampler):
         if self.fused:
             from bipymc_tpu.samplers.dream_fused import check_fusable
             check_fusable(self.cfg, mesh)
-            _check_fused_dtype(self.dtype)
+            _check_fused_target(log_prob_block)
 
     def _pool(self):
         if getattr(self, "_pool_obj", None) is None:
@@ -1318,8 +1231,7 @@ class DreamZs(McmcSampler):
             self._fused_runner = make_chunk_runner(
                 self.log_like_fn, self.cfg,
                 log_prob_block=self._log_prob_block, mesh=self.mesh,
-                rng=self.fused_rng, z_update_every=self.fused_z_update,
-                gather_mode=self.fused_gather)
+                z_update_every=self.fused_z_update)
         return self._run_fused_segment(
             self._fused_runner, self._fused_jits, state, k_run, n_gens, t0)
 
@@ -1399,18 +1311,14 @@ class DreamZs(McmcSampler):
                     self._fused_runner_local = make_chunk_runner(
                         self.log_like_fn, self.cfg,
                         log_prob_block=self._log_prob_block,
-                        mesh=self.mesh, rng=self.fused_rng, wrap=False,
-                        collect="rhat",
-                        z_update_every=self.fused_z_update,
-                        gather_mode=self.fused_gather)
+                        mesh=self.mesh, wrap=False, collect="rhat",
+                        z_update_every=self.fused_z_update)
                 chunk_runner = self._fused_runner_local
                 fused_after = self.cfg.burnin_gens
         # auto capacity for an R̂-stopped run: chunk·max_chunks is a
         # worst-case bound the typical run never approaches, and sizing
-        # the ring for it balloons the while_loop's carried archive —
-        # measured 1.65× the north-star wall at 65536 vs 8192 rows for
-        # identical work (docs/ROUND3.md §14; the gather lowering was
-        # ruled out by the controlled A/B). Cap the AUTO ring at 32
+        # the ring for it balloons the while_loop's carried archive for
+        # identical work. Cap the AUTO ring at 32
         # population snapshots (bench.py pins the same 8192 for 256
         # chains); archive_capacity= overrides explicitly.
         state, k_run = self._ensure_state(
@@ -1473,7 +1381,7 @@ class Smc:
     callable target; ``kernel="hmc"`` rejuvenates with leapfrog
     trajectories (needs a differentiable target) and is the measured
     difference between working and collapsing on high-dimensional
-    separated-mode targets (docs/ROUND3.md §21).
+    separated-mode targets.
 
     The reference density is a **normalised** diagonal Gaussian given by
     ``ref_mean``/``ref_var`` (log-evidence is then the target's true log
@@ -1481,7 +1389,7 @@ class Smc:
     ``log_ref(x scalar-per-row)`` must be normalised for the evidence to
     be meaningful, and ``sample_ref(key, n) -> [n, d]`` must draw from
     it. ``mesh=`` shards the particle axis; cross-particle reductions
-    follow the gather-then-reduce rule (docs/ROUND3.md §11): the
+    follow the gather-then-reduce rule: the
     decision math (β ladder, resample, evidence) is identical on both
     paths and bit-identical GIVEN bit-identical particles, but the
     sharded move programs round ~1 ulp differently per move
@@ -1652,7 +1560,7 @@ class Smc:
 class Svgd:
     """Stein variational gradient descent (samplers/svgd.py) —
     beyond-reference extra. Deterministic particle transport toward the
-    posterior: one RBF kernel-matrix build plus two [N,N]×[N,d] MXU
+    posterior: one RBF kernel-matrix build plus two [N,N]×[N,d] matmul
     contractions and a batch of target gradients per step, no
     accept/reject, no RNG after init. Use it for fast approximate
     posteriors, warm-start populations for the MCMC families, or as a
@@ -1661,7 +1569,7 @@ class Svgd:
     underestimation). ``mesh=`` shards the particle axis — gradients
     evaluate shard-locally (the dominant cost for expensive targets such
     as the GP surrogate), kernel/bandwidth decision math runs replicated
-    on gathered positions (gather-then-reduce, docs/ROUND3.md §11).
+    on gathered positions (gather-then-reduce).
     """
 
     def __init__(self, log_like_fn, n_particles=256, seed=0,
@@ -1907,8 +1815,7 @@ class NestedSampler:
     design and its scope limits. ``mesh=`` shards the replacement
     walkers (``n_batch`` divisible by the device count); live-set
     decision math is replicated, per-walker RNG folds by global index,
-    so mesh and vmap runs see identical streams (gather-then-reduce,
-    docs/ROUND3.md §11).
+    so mesh and vmap runs see identical streams (gather-then-reduce).
     """
 
     def __init__(self, log_like_fn, prior_transform, n_dim,
@@ -2046,7 +1953,7 @@ class FlowMh(McmcSampler):
     earlier draws. The fit's log-density is exact, so the kernel
     targets the exact posterior at ANY fit quality; fit quality sets
     the global-move acceptance rate. This is the cross-mode channel the
-    DE/archive family lacks at d≳20 (docs/ROUND3.md §2): transplants
+    DE/archive family lacks at d≳20: transplants
     happen at the proposal acceptance rate, independent of mode
     separation.
 
@@ -2075,19 +1982,19 @@ class FlowMh(McmcSampler):
         fused engine (samplers/flowmh_fused.py): the whole
         ``global_every × local_moves`` local-RW block between global
         moves runs as ONE Pallas kernel, the global move between
-        launches. Composes with ``mesh=`` (round 5): each device runs
+        launches. Composes with ``mesh=``: each device runs
         the fused kernel on its chain shard with zero in-step
         collectives, bit-identical streams to the single-device run.
         Identical streams to ``fused=False`` (the prep
-        replicates the per-generation word layout); requires a
-        Mosaic-expressible target, ``local_moves >= 1``, float32,
-        AND ``thin == 1`` with no ``progress_every``
-        (those runs fall back to the per-generation engine — same
-        trajectories, slower; run_mcmc warns when that happens so a
-        benchmark can't silently measure the wrong engine — round-4
-        code-review finding). ``global_every=K`` in ``config_kw``
-        amortizes the proposal-density passes 1/K
-        (benchmarks/flowmh_amortize_ab).
+        replicates the per-generation word layout); requires
+        ``local_moves >= 1`` AND ``thin == 1`` with no
+        ``progress_every`` (those runs fall back to the per-generation
+        engine — same trajectories, slower; run_mcmc warns when that
+        happens so a benchmark can't silently measure the wrong
+        engine). On the GPU the in-kernel target is ``log_prob_block``,
+        a padded block form (models/targets.py ``*_block``);
+        construction raises without one. ``global_every=K`` in
+        ``config_kw`` amortizes the proposal-density passes 1/K.
         """
         super().__init__(log_like_fn, seed=seed, dtype=dtype)
         from bipymc_tpu.utils.flows import FlowConfig, flow_proposal
@@ -2117,7 +2024,7 @@ class FlowMh(McmcSampler):
             from bipymc_tpu.samplers.flowmh_fused import (
                 check_flowmh_fusable)
             check_flowmh_fusable(self.cfg, mesh, self.n_chains)
-            _check_fused_dtype(self.dtype)
+            _check_fused_target(log_prob_block)
 
     def _ensure_fused_runner(self):
         if self._fused_runner is None:

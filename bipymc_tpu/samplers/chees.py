@@ -3,8 +3,8 @@
 Hoffman, Radul & Sountsov (AISTATS 2021), "An Adaptive-MCMC Scheme for
 Setting Trajectory Lengths in Hamiltonian Monte Carlo". The
 accelerator-native answer to NUTS: instead of a per-chain recursive
-tree with a data-dependent ``while_loop`` (samplers/nuts.py — measured
-373 µs/gen vs HMC's 100 at 256×100, docs/ROUND3.md §20), ChEES tunes
+tree with a data-dependent ``while_loop`` (samplers/nuts.py), ChEES
+tunes
 ONE shared trajectory length T from a cross-chain statistic, so every
 generation is a single fixed-cost batched leapfrog integration whose
 step count is known before it starts. The chain population this
@@ -12,8 +12,7 @@ framework already treats as a batch axis (SURVEY.md §9) IS the tuning
 signal — many chains make the criterion's expectation cheap and sharp,
 which is exactly the regime this package runs in (hundreds-thousands of
 chains). This is why the algorithm exists: NUTS's control flow is
-hostile to SIMD/SPMD hardware; ChEES was designed (at Google, for TPUs)
-to replace it.
+hostile to SIMD/SPMD hardware; ChEES was designed to replace it.
 
 Criterion: maximise the Change in the Estimator of the Expected Square,
 

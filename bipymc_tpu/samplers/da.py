@@ -18,7 +18,7 @@ is then corrected in stage 2 against the exact target:
 orderings). A good surrogate drives α₂ → 1: stage 2 is a cheap
 correction, not a second rejection gauntlet.
 
-TPU mapping: vmapped chains evaluate the surrogate branchlessly on
+Accelerator mapping: vmapped chains evaluate the surrogate branchlessly on
 device (it is cheap by assumption — a GP predict is a couple of m-sized
 contractions). The exact likelihood is where delayed acceptance pays:
 with ``masked=True`` the step hands ``log_prob_exact(y, promoted)`` the

@@ -1,13 +1,13 @@
 """DE-MC: differential-evolution MCMC over a parallel population.
 
-ter Braak (2006) — SURVEY.md §4.5; TPU-native replacement for the
+ter Braak (2006) — SURVEY.md §4.5; accelerator-native replacement for the
 reference's ``DeMc`` + mpi4py pool (`bipymc/demc.py` [U]). One synchronous
 generation (the parallel-friendly variant the reference pool uses) is a
 pure step over the whole population: per-chain proposals are built from the
 *generation-start* population, all likelihoods evaluate in one ``vmap``,
 and accepts are vectorised. Across devices the population is sharded on a
 ``"chains"`` mesh axis and the proposal pool arrives via ``all_gather``
-(SURVEY.md §5.2 "TPU mapping").
+(SURVEY.md §5.2).
 """
 
 from typing import Callable, NamedTuple
@@ -67,14 +67,8 @@ def make_step(log_prob: Callable, cfg: DeMcConfig, axis_name=None) -> Callable:
         row_bits = blk[:, 0:2]
         eps = cfg.b * bits_to_normal(blk[:, 2:2 + d], dtype)
         log_u = jnp.log(bits_to_uniform(blk[:, 2 + d], dtype))
-        if jax.default_backend() == "tpu":
-            # fused single-launch distinct draw (bit-identical to the jnp
-            # path — ops/distinct_idx.py)
-            from bipymc_tpu.ops.distinct_idx import distinct_idx_pallas
-            r = distinct_idx_pallas(row_bits, 2, cfg.n_chains, exclude=gid)
-        else:
-            r = jax.vmap(lambda b, i: distinct_from_bits(
-                b, 2, cfg.n_chains, exclude=i))(row_bits, gid)
+        r = jax.vmap(lambda b, i: distinct_from_bits(
+            b, 2, cfg.n_chains, exclude=i))(row_bits, gid)
         x_star = state.x + gamma * (x_full[r[:, 0]] - x_full[r[:, 1]]) + eps
         logp_star = jax.vmap(log_prob)(x_star)             # dominant cost
 

@@ -1,7 +1,7 @@
 """DE-MC-z and DREAM-zs: archive-based differential-evolution MCMC.
 
 ter Braak & Vrugt (2008) and Vrugt et al. (2009, 2011) — SURVEY.md
-§4.6–4.7; TPU-native replacement for the reference's ``DeMcZ`` /
+§4.6–4.7; accelerator-native replacement for the reference's ``DeMcZ`` /
 ``DreamZs`` classes and their mpi4py pool (`bipymc/dream.py` [U]).
 
 One engine covers both samplers (DE-MC-z is DREAM-zs with δ=1, a single
@@ -61,19 +61,13 @@ class DreamConfig(NamedTuple):
     use_archive: bool = True    # False → population-DREAM (Vrugt 2009):
                                 # difference vectors from the current
                                 # generation-start population, r₁≠r₂≠i
-    pallas_proposal: bool | None = None   # fused proposal-math kernel;
-                                          # None → auto (TPU backend only)
-    pallas_accept: bool = False  # fused accept/update kernel — measured
-                                 # SLOWER than XLA's fusions at 256–4096
-                                 # chains (docs/ROUND3.md §5 A/B table),
-                                 # shipped off-default like pallas_chol
     jump_full_cr: bool = False   # force CR=1 (full-dimension crossover)
                                  # at γ=1 jump generations: a partial-dim
                                  # γ=1 move lands BETWEEN well-separated
                                  # modes and always rejects, so this
                                  # multiplies the inter-mode hop rate by
-                                 # ~1/P(CR=1) on multimodal targets
-                                 # (docs/ROUND3.md §2/§6). Off by default:
+                                 # ~1/P(CR=1) on multimodal targets.
+                                 # Off by default:
                                  # γ:=1 with the subspace still in effect
                                  # is the literature's letter and the
                                  # fidelity contract with the reference.
@@ -82,15 +76,6 @@ class DreamConfig(NamedTuple):
                                  # sampling — for archives too large to
                                  # replicate per device (SURVEY.md §7.7);
                                  # no-op on the single-device vmap path
-    gather_kernel: bool = False  # route the per-generation archive row
-                                 # gather buf[row_idx] through the
-                                 # capacity-independent HBM-DMA kernel
-                                 # (ops/gather_rows.py) instead of the
-                                 # XLA gather, whose TPU lowering can
-                                 # cost O(archive capacity) per
-                                 # generation (docs/ROUND3.md §14).
-                                 # Values identical; replicated-archive
-                                 # configurations only.
 
 
 def demcz_config(n_chains: int, **kw) -> DreamConfig:
@@ -165,6 +150,63 @@ def archive_init_checked(z0, capacity, cfg: DreamConfig):
     return archive_init(z0, capacity)
 
 
+def propose_math_one(cfg: DreamConfig, x_i, u_scal, rows, cr_idx, u_mask,
+                     u_e, eps_n, gamma_jump, dtype):
+    """Deterministic DREAM-zs proposal math for ONE chain (jnp).
+
+    The per-generation engine vmaps this over the population; the fused
+    kernel's block form (ops/dream_proposal.propose_block) is held to it
+    by tests/test_dream_pallas.py. rows: [max(2·δ_max, 3), d] archive
+    rows. Returns (x_star [d], log_jac [], is_snooker [] bool).
+    """
+    n_pairs = cfg.delta_max
+    d = x_i.shape[-1]
+    # ---------- parallel-direction move (§4.7) -----------------------
+    delta = 1 + jnp.floor(u_scal[1] * n_pairs).astype(jnp.int32)
+    delta = jnp.minimum(delta, n_pairs)          # guard u == 1.0 edge
+    pair_mask = (jnp.arange(n_pairs) < delta).astype(dtype)[:, None]
+    z1 = rows[0:n_pairs]
+    z2 = rows[n_pairs:2 * n_pairs]
+    diff = jnp.sum(pair_mask * (z1 - z2), axis=0)
+
+    cr = (cr_idx + 1).astype(dtype) / cfg.n_cr
+    if cfg.jump_full_cr:
+        # full-dimension crossover on γ=1 jump generations (mode-
+        # transplant enhancement; see DreamConfig.jump_full_cr)
+        cr = jnp.where(gamma_jump, jnp.asarray(1.0, dtype), cr)
+    u = u_mask
+    mask = u < cr
+    # guarantee at least one crossed-over dimension
+    mask = mask.at[jnp.argmin(u)].set(True)
+    d_eff = jnp.sum(mask).astype(dtype)
+
+    gamma = 2.38 / jnp.sqrt(2.0 * delta.astype(dtype) * d_eff)
+    gamma = jnp.where(gamma_jump, jnp.asarray(1.0, dtype), gamma)
+    e = cfg.b * (2.0 * u_e - 1.0)                # U(−b, b)
+    eps = cfg.b_star * eps_n
+    x_par = x_i + mask * ((1.0 + e) * gamma * diff + eps)
+
+    # ---------- snooker move (§4.6) ----------------------------------
+    z, zr1, zr2 = rows[0], rows[1], rows[2]
+    u_dir = x_i - z
+    # HIGHEST: no TF32 in the projections the Jacobian below depends on
+    hi = jax.lax.Precision.HIGHEST
+    denom = jnp.maximum(jnp.dot(u_dir, u_dir, precision=hi), 1e-30)
+    proj = lambda v: z + (jnp.dot(v - z, u_dir, precision=hi) / denom) * u_dir
+    gamma_s = cfg.snooker_lo + \
+        (cfg.snooker_hi - cfg.snooker_lo) * u_scal[2]
+    x_snk = x_i + gamma_s * (proj(zr1) - proj(zr2))
+    # Jacobian factor (‖x*−z‖/‖xᵢ−z‖)^{d−1} in log space
+    log_jac_snk = (d - 1) * 0.5 * (
+        jnp.log(jnp.maximum(jnp.sum((x_snk - z) ** 2), 1e-30))
+        - jnp.log(denom))
+
+    is_snooker = (cfg.p_snooker > 0.0) & (u_scal[0] < cfg.p_snooker)
+    x_star = jnp.where(is_snooker, x_snk, x_par)
+    log_jac = jnp.where(is_snooker, log_jac_snk, 0.0)
+    return x_star, log_jac, is_snooker
+
+
 def make_step(log_prob: Callable, cfg: DreamConfig, axis_name=None,
               draws_fn: Callable | None = None) -> Callable:
     """Build ``step(state, key, t) -> (state, info)`` for the population.
@@ -178,17 +220,6 @@ def make_step(log_prob: Callable, cfg: DreamConfig, axis_name=None,
     the crossover uniforms and the e-jitter uniforms; u_acc is the accept
     uniform. Default: jax.random draws (the production path).
     """
-    if cfg.gather_kernel and not cfg.use_archive:
-        raise ValueError(
-            "gather_kernel=True routes the ARCHIVE row gather through "
-            "the DMA kernel; this configuration samples the live "
-            "population (use_archive=False), which has no capacity "
-            "pathology to fix — drop gather_kernel")
-    if cfg.gather_kernel and cfg.shard_archive and axis_name is not None:
-        raise ValueError(
-            "gather_kernel=True applies to replicated archives only; "
-            "the sharded archive already gathers via the ppermute ring "
-            "— drop one of gather_kernel / shard_archive")
     n_pairs = cfg.delta_max
     if cfg.shard_archive and not cfg.use_archive:
         raise ValueError("shard_archive requires use_archive=True "
@@ -200,95 +231,9 @@ def make_step(log_prob: Callable, cfg: DreamConfig, axis_name=None,
     # two branches can share one draw of max(2·δ_max, 3) rows.
     n_rows = max(2 * n_pairs, 3)
 
-    def propose_math_one(x_i, u_scal, rows, cr_idx, u_mask, u_e, eps_n,
-                         gamma_jump, dtype):
-        """Deterministic proposal math, reference (unfused jnp) path."""
-        d = x_i.shape[-1]
-        # ---------- parallel-direction move (§4.7) -----------------------
-        delta = 1 + jnp.floor(u_scal[1] * n_pairs).astype(jnp.int32)
-        delta = jnp.minimum(delta, n_pairs)          # guard u == 1.0 edge
-        pair_mask = (jnp.arange(n_pairs) < delta).astype(dtype)[:, None]
-        z1 = rows[0:n_pairs]
-        z2 = rows[n_pairs:2 * n_pairs]
-        diff = jnp.sum(pair_mask * (z1 - z2), axis=0)
-
-        cr = (cr_idx + 1).astype(dtype) / cfg.n_cr
-        if cfg.jump_full_cr:
-            # full-dimension crossover on γ=1 jump generations (mode-
-            # transplant enhancement; see DreamConfig.jump_full_cr)
-            cr = jnp.where(gamma_jump, jnp.asarray(1.0, dtype), cr)
-        u = u_mask
-        mask = u < cr
-        # guarantee at least one crossed-over dimension
-        mask = mask.at[jnp.argmin(u)].set(True)
-        d_eff = jnp.sum(mask).astype(dtype)
-
-        gamma = 2.38 / jnp.sqrt(2.0 * delta.astype(dtype) * d_eff)
-        gamma = jnp.where(gamma_jump, jnp.asarray(1.0, dtype), gamma)
-        e = cfg.b * (2.0 * u_e - 1.0)                # U(−b, b)
-        eps = cfg.b_star * eps_n
-        x_par = x_i + mask * ((1.0 + e) * gamma * diff + eps)
-
-        # ---------- snooker move (§4.6) ----------------------------------
-        z, zr1, zr2 = rows[0], rows[1], rows[2]
-        u_dir = x_i - z
-        denom = jnp.maximum(jnp.dot(u_dir, u_dir), 1e-30)
-        proj = lambda v: z + (jnp.dot(v - z, u_dir) / denom) * u_dir
-        gamma_s = cfg.snooker_lo + \
-            (cfg.snooker_hi - cfg.snooker_lo) * u_scal[2]
-        x_snk = x_i + gamma_s * (proj(zr1) - proj(zr2))
-        # Jacobian factor (‖x*−z‖/‖xᵢ−z‖)^{d−1} in log space
-        log_jac_snk = (d - 1) * 0.5 * (
-            jnp.log(jnp.maximum(jnp.sum((x_snk - z) ** 2), 1e-30))
-            - jnp.log(denom))
-
-        is_snooker = (cfg.p_snooker > 0.0) & (u_scal[0] < cfg.p_snooker)
-        x_star = jnp.where(is_snooker, x_snk, x_par)
-        log_jac = jnp.where(is_snooker, log_jac_snk, 0.0)
-        return x_star, log_jac, is_snooker
-
-    def propose_all(x, u_scal, rows, cr_idx, u_mask, u_e, eps_n,
-                    gamma_jump, dtype):
-        """Proposal math over the population: fused Pallas kernel on TPU
-        (one VPU launch instead of ~30 small ops), unfused jnp elsewhere.
-        Both paths consume the identical randomness."""
-        use_pallas = cfg.pallas_proposal
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        if not use_pallas:
-            return jax.vmap(
-                lambda xi, us, rw, ci, um, ue, ep: propose_math_one(
-                    xi, us, rw, ci, um, ue, ep, gamma_jump, dtype)
-            )(x, u_scal, rows, cr_idx, u_mask, u_e, eps_n)
-
-        from bipymc_tpu.ops.dream_proposal import dream_propose_pallas
-        d = x.shape[-1]
-        delta = 1 + jnp.floor(u_scal[:, 1] * n_pairs)
-        delta = jnp.minimum(delta, float(n_pairs)).astype(dtype)
-        cr = (cr_idx + 1).astype(dtype) / cfg.n_cr
-        gamma_s = cfg.snooker_lo + \
-            (cfg.snooker_hi - cfg.snooker_lo) * u_scal[:, 2]
-        is_snk = (cfg.p_snooker > 0.0) & (u_scal[:, 0] < cfg.p_snooker)
-        gj = jnp.broadcast_to(gamma_jump.astype(dtype), delta.shape)
-        if cfg.jump_full_cr:
-            cr = jnp.where(gj > 0, jnp.asarray(1.0, dtype), cr)
-        scal = jnp.stack(
-            [delta, cr, gamma_s, is_snk.astype(dtype), gj], axis=1)
-        x_star, log_jac = dream_propose_pallas(
-            x, rows, u_mask, u_e, eps_n, scal,
-            n_pairs=n_pairs, d_true=d, b=cfg.b, b_star=cfg.b_star,
-            # explicit pallas_proposal=True off-TPU → interpret mode, so
-            # CPU goldens/fidelity tests can pin the fused path
-            interpret=jax.default_backend() != "tpu")
-        return x_star, log_jac, is_snk
-
     def step(state: DreamState, key: jax.Array, t: jax.Array):
         n_local, d = state.x.shape
         dtype = state.x.dtype
-        use_pallas = cfg.pallas_proposal
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        interp = jax.default_backend() != "tpu"
         offset = chain_offset(n_local, axis_name)
         gamma_jump = (state.gen % cfg.jump_interval) == (cfg.jump_interval - 1)
         in_burnin = state.gen < cfg.burnin_gens
@@ -320,18 +265,7 @@ def make_step(log_prob: Callable, cfg: DreamConfig, axis_name=None,
             u_mask = u_all[:, off_w:off_w + d]
             u_e = u_all[:, off_w + d:off_w + 2 * d]
             eps_n = uniform_to_normal(u_all[:, off_w + 2 * d:])
-            # distinct rows: fused single-launch kernel on the pallas path
-            # (the unrolled shift chain is ~60 dependent i32 ops — half the
-            # step when left to per-op dispatch), identical bits either way
-            if use_pallas:
-                from bipymc_tpu.ops.distinct_idx import distinct_idx_pallas
-                bound = (state.archive.fill if cfg.use_archive
-                         else cfg.n_chains)
-                row_idx = distinct_idx_pallas(
-                    row_bits, n_rows, bound,
-                    exclude=None if cfg.use_archive else gid,
-                    interpret=interp)
-            elif cfg.use_archive:
+            if cfg.use_archive:
                 row_idx = jax.vmap(
                     lambda b: distinct_from_bits(
                         b, n_rows, state.archive.fill))(row_bits)
@@ -354,39 +288,24 @@ def make_step(log_prob: Callable, cfg: DreamConfig, axis_name=None,
         if cfg.use_archive and cfg.shard_archive and axis_name is not None:
             rows = archive_gather_sharded(
                 state.archive.buf, row_idx, axis_name)
-        elif cfg.use_archive and cfg.gather_kernel:
-            from bipymc_tpu.ops.gather_rows import gather_rows_pallas
-            rows = gather_rows_pallas(state.archive.buf, row_idx,
-                                      interpret=interp)
         elif cfg.use_archive:
             rows = state.archive.buf[row_idx]              # [n_local, n_rows, d]
         else:
             rows = x_full[row_idx]
-        x_star, log_jac, is_snk = propose_all(
-            state.x, u_scal, rows, cr_idx, u_mask, u_e, eps_n, gamma_jump,
-            dtype)
+        x_star, log_jac, is_snk = jax.vmap(
+            lambda xi, us, rw, ci, um, ue, ep: propose_math_one(
+                cfg, xi, us, rw, ci, um, ue, ep, gamma_jump, dtype)
+        )(state.x, u_scal, rows, cr_idx, u_mask, u_e, eps_n)
 
         logp_star = jax.vmap(log_prob)(x_star)             # dominant cost
         log_u = jnp.log(u_acc)
-        if cfg.pallas_accept:
-            # fused accept/update: exact ops only (compare/select/min/add),
-            # bit-identical to the jnp chain below. OFF by default: XLA's
-            # fusions win the A/B at every chain count measured (256–4096
-            # × d=100 — docs/ROUND3.md §5); kept as an option so the
-            # negative result stays re-measurable on future hardware.
-            from bipymc_tpu.ops.accept_select import accept_select_pallas
-            x_new, logp_new, logp_sum, acc = accept_select_pallas(
-                state.x, x_star, state.logp, logp_star, log_jac, log_u,
-                state.logp_sum, interpret=interp)
-        else:
-            log_alpha = jnp.minimum(0.0, logp_star - state.logp + log_jac)
-            # guard NaN/-inf proposals (out-of-support): always reject
-            log_alpha = jnp.where(jnp.isfinite(logp_star), log_alpha,
-                                  -jnp.inf)
-            acc = log_u < log_alpha
-            x_new = jnp.where(acc[:, None], x_star, state.x)
-            logp_new = jnp.where(acc, logp_star, state.logp)
-            logp_sum = state.logp_sum + logp_new
+        log_alpha = jnp.minimum(0.0, logp_star - state.logp + log_jac)
+        # guard NaN/-inf proposals (out-of-support): always reject
+        log_alpha = jnp.where(jnp.isfinite(logp_star), log_alpha, -jnp.inf)
+        acc = log_u < log_alpha
+        x_new = jnp.where(acc[:, None], x_star, state.x)
+        logp_new = jnp.where(acc, logp_star, state.logp)
+        logp_sum = state.logp_sum + logp_new
 
         # Population-level schedule blocks below run under lax.cond — the
         # predicates are replicated (generation-counter based), so all

@@ -5,7 +5,7 @@ chunks where each chunk is (a) a handful of XLA ops that pregenerate the
 chunk's randomness — the SAME threefry streams as the per-generation
 engine (samplers/dream.py) — compute distinct archive row indices,
 gather rows, and pack per-chain scalars, then (b) ONE Pallas kernel that
-advances all G generations with x/logp in VMEM scratch, then (c) the
+advances all G generations with x/logp carried inside it, then (c) the
 archive ring append. See ops/fused_chunk.py's module docstring for why
 chunk = ``archive_thin`` gives exactly the per-generation semantics.
 
@@ -22,9 +22,8 @@ remainder through here.
 Key discipline: ``step_key(base_key, t)`` + per-chain ``fold_in`` on the
 global chain id, identical to ChainPool.run — for the same base key the
 fused and per-generation engines consume identical random streams, and
-their trajectories agree up to float re-association (exactly, when the
-per-generation engine runs its Pallas proposal path —
-tests/test_fused_chunk.py).
+their trajectories agree up to float re-association
+(tests/test_fused_chunk.py).
 """
 
 from typing import Callable
@@ -38,7 +37,7 @@ from bipymc_tpu.ensemble.archive import archive_append
 from bipymc_tpu.ensemble.indices import distinct_from_bits
 from bipymc_tpu.ops.fused_chunk import (
     fused_chunk_pallas, lp_block_cache)
-from bipymc_tpu.parallel.collectives import all_gather_chains, chain_offset
+from bipymc_tpu.parallel.collectives import chain_offset
 from bipymc_tpu.parallel.mesh import CHAIN_AXIS
 from bipymc_tpu.samplers.dream import DreamConfig, DreamState
 from bipymc_tpu.utils.streaming import rhat_init, rhat_update_block
@@ -56,51 +55,23 @@ def validate_fused_segment(cfg: DreamConfig, t0: int):
             "engine through burn-in first")
 
 
-def _kernel_rng_seeds(keys, offset):
-    """Per-generation in-kernel-PRNG seed words for the chain shard
-    whose first global chain index is ``offset``.
-
-    Folding ``offset`` decorrelates mesh shards (each device's kernel
-    draws from a distinct stream); the in-kernel ``prng_seed`` then
-    folds the local chain-block id. Deterministic given the base key
-    and mesh layout, but — unlike rng="stream" — kernel-RNG
-    trajectories are NOT bit-identical across different device counts
-    (the (offset, block) decomposition of a chain differs).
-    """
-    return jax.vmap(lambda kk: jax.random.bits(
-        jax.random.fold_in(
-            jax.random.fold_in(kk, 0x6B524E47), offset), (),
-        jnp.uint32))(keys)
-
-
-# Archive row-gather strategy for the fused chunk
-# ("block" | "pergen" | "kernel").
-# "block" issues ONE [G, n, k]-index gather per chunk; "pergen" scans G
-# per-generation [n, k] gathers (lax.map), matching the per-generation
-# engine's op shape; "kernel" routes the block gather through the
-# capacity-independent HBM-DMA kernel (ops/gather_rows.py) — the XLA
-# gather lowerings can cost O(archive capacity), the kernel cannot.
-# Values are identical for all three; only the lowering differs.
-# Module-level so a hardware A/B can flip it in-process.
-_GATHER_MODE = "block"
-_GATHER_MODES = ("block", "pergen", "kernel")
-
-
-def _gather_rows(buf, row_idx, mode=None, interpret=False):
-    """buf[row_idx] with a switchable lowering (see _GATHER_MODE).
-
-    mode=None reads the module global AT TRACE TIME — callers that want
-    to A/B the lowering must build (and jit) a fresh runner per arm, or
-    pass ``make_chunk_runner(gather_mode=...)`` so the choice is part of
-    the runner's identity instead of hidden trace-time state.
-    """
-    mode = mode or _GATHER_MODE
-    if mode == "pergen":
-        return jax.lax.map(lambda ri: buf[ri], row_idx)
-    if mode == "kernel":
-        from bipymc_tpu.ops.gather_rows import gather_rows_pallas
-        return gather_rows_pallas(buf, row_idx, interpret=interpret)
-    return buf[row_idx]
+def proposal_scalars(cfg: DreamConfig, u_scal, cr_idx, gamma_jump, dtype):
+    """Per-chain kernel scalars ``[..., 5]`` (delta, cr, gamma_s,
+    is_snooker, gamma_jump as floats): the values samplers/dream.py
+    ``propose_math_one`` derives inside its per-chain math, in the
+    column order ops/fused_chunk.py reads. u_scal [..., 3]; cr_idx and
+    gamma_jump (0/1 floats) [...]."""
+    n_pairs = cfg.delta_max
+    delta = 1 + jnp.floor(u_scal[..., 1] * n_pairs)
+    delta = jnp.minimum(delta, float(n_pairs)).astype(dtype)
+    cr = (cr_idx + 1).astype(dtype) / cfg.n_cr
+    if cfg.jump_full_cr:
+        cr = jnp.where(gamma_jump > 0, jnp.asarray(1.0, dtype), cr)
+    gamma_s = cfg.snooker_lo + \
+        (cfg.snooker_hi - cfg.snooker_lo) * u_scal[..., 2]
+    is_snk = ((cfg.p_snooker > 0.0)
+              & (u_scal[..., 0] < cfg.p_snooker)).astype(dtype)
+    return jnp.stack([delta, cr, gamma_s, is_snk, gamma_jump], axis=-1)
 
 
 def check_fusable(cfg: DreamConfig, mesh=None):
@@ -122,15 +93,11 @@ def check_fusable(cfg: DreamConfig, mesh=None):
 
 def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
                       log_prob_block: Callable | None = None,
-                      interpret: bool | None = None,
                       collect: str = "all",
                       prep_chunks: int = 8,
                       mesh=None,
-                      rng: str = "stream",
                       wrap: bool = True,
-                      gather_mode: str | None = None,
-                      z_update_every: int = 1,
-                      _test_stream_bits: bool = False) -> Callable:
+                      z_update_every: int = 1) -> Callable:
     """Build ``run(state, base_key, n_gens, t0) -> (state, history)``.
 
     n_gens must be a multiple of ``cfg.archive_thin``; ``t0`` (a Python
@@ -140,10 +107,11 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
     the same leaves as the default ChainPool collection.
 
     log_prob_block: optional ``[BC, Dp]-padded -> [BC, 1]`` kernel-side
-    target (see ops/fused_chunk.block_logp_from_scalar); default wraps
-    ``log_prob``. collect: ``"all"`` keeps per-generation positions in
-    history; ``"stats"`` keeps only logp/accepted (positions cost
-    n_gens·n·d floats — at 4096 chains × d=100 that is 1.6 GB per 1000
+    target (models/targets.py ``*_block``); default wraps ``log_prob``
+    for the interpreter (ops/fused_chunk.block_logp_from_scalar).
+    collect: ``"all"`` keeps per-generation positions in history;
+    ``"stats"`` keeps only logp/accepted (positions cost n_gens·n·d
+    floats — at 4096 chains × d=100 that is 1.6 GB per 1000
     generations, the difference between fitting in HBM or not);
     ``"rhat"`` folds per-chain Welford moments inside the runner's own
     scan and returns them as ``hist["rhat"]`` (an RhatCarry) next to the
@@ -151,11 +119,11 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
     loop never materializes positions at all.
 
     prep_chunks: batch the randomness/scalar pregeneration over this
-    many chunks per outer scan step (docs/design.md §10e's "batch the
-    prep" lever). Legal because everything pregenerated is independent
-    of the archive *content*: threefry streams key on the absolute
-    generation index, and the CR table is frozen post-burn-in. Only the
-    fill-dependent distinct-row draw, the Z gather, the kernel, and the
+    many chunks per outer scan step. Legal because everything
+    pregenerated is independent of the archive *content*: threefry
+    streams key on the absolute generation index, and the CR table is
+    frozen post-burn-in. Only the fill-dependent distinct-row draw, the Z
+    gather, the kernel, and the
     append remain per-chunk. Trajectories are bit-identical for every
     value; the knob only moves launch overhead.
 
@@ -164,25 +132,10 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
     on its chain shard against the replicated archive, and the only
     cross-device traffic is ONE [n, d] ``all_gather`` per chunk for the
     ring append (the identical collective placement as the
-    per-generation engine's sharded path, samplers/dream.py). With
-    rng="stream", streams fold on GLOBAL chain ids, so trajectories are
-    bit-identical to the single-device runner for the same base key
-    (tests/test_fused_chunk.py::test_fused_mesh_matches_single_device);
-    with rng="kernel" each shard seeds a distinct PRNG stream (global
-    offset folded — :func:`_kernel_rng_seeds`), so mesh runs are
-    deterministic and shard-decorrelated but not bit-identical across
-    device counts.
-
-    rng: ``"stream"`` (default) pregenerates u_mask/u_e/eps XLA-side —
-    the bit-identical-to-the-per-generation-engine contract. ``
-    "kernel"`` draws them from the TPU hardware PRNG *inside* the fused
-    kernel (seeded per generation from the same threefry hierarchy, so
-    runs are reproducible given the base key): the per-chain word block
-    shrinks 5+k+3d → 5+k and three of six streamed kernel operands
-    disappear — measured the dominant cost at ≥1024 chains. Same
-    proposal/accept math and same conversion maps, different bit
-    source: NOT bit-identical to ``"stream"``, distributionally
-    equivalent. TPU-only (the interpret PRNG is a zero stub).
+    per-generation engine's sharded path, samplers/dream.py). Streams
+    fold on GLOBAL chain ids, so trajectories are bit-identical to the
+    single-device runner for the same base key
+    (tests/test_fused_chunk.py::test_fused_mesh_matches_single_device).
     wrap: with a mesh, ``wrap=False`` returns the per-shard body
     (collectives on the chain axis) instead of the shard_map-wrapped
     program — for embedding inside a caller's own shard_map, e.g.
@@ -197,51 +150,20 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
     appended at update time — so the stationary distribution is
     unchanged. Proposals inside a super-block sample a Z that is stale
     by up to K·archive_thin generations, so K > 1 trajectories are NOT
-    bit-identical to the per-generation engine (K = 1 is, with
-    rng="stream"); the random streams themselves still key on absolute
-    generation indices and are identical for every K. Requires
+    bit-identical to the per-generation engine (K = 1 is); the random
+    streams themselves still key on absolute generation indices and are
+    identical for every K. Requires
     ``K · n_chains ≤ archive capacity`` (a batched append may not wrap
     onto itself). The payoff is per-generation XLA glue (distinct-idx
-    draw, gather, append, kernel launch) amortized K×: the dominant
-    non-kernel cost at the 256-chain headline (docs/design.md §10g).
-    _test_stream_bits: testing hook — stream the exact bits the
-    "stream" path would consume through the in-kernel conversion code
-    instead of the PRNG, making rng="kernel" reproduce rng="stream"
-    bitwise on CPU (tests/test_fused_chunk.py).
+    draw, gather, append, kernel launch) amortized K×.
     """
-    if rng not in ("stream", "kernel"):
-        raise ValueError(f"rng={rng!r}: expected 'stream' or 'kernel'")
     if collect not in ("all", "stats", "rhat"):
         raise ValueError(
             f"collect={collect!r}: expected 'all', 'stats' or 'rhat'")
-    if gather_mode is not None and gather_mode not in _GATHER_MODES:
-        raise ValueError(
-            f"gather_mode={gather_mode!r}: expected one of {_GATHER_MODES}")
     check_fusable(cfg, mesh)
     K = int(z_update_every)
     if K < 1:
         raise ValueError(f"z_update_every={z_update_every}: must be >= 1")
-    _interp = (jax.default_backend() != "tpu" if interpret is None
-               else interpret)
-    # On the mesh path the Pallas kernel runs PER SHARD, so the shape
-    # that reaches Mosaic is the local chain count (round-4 ADVICE: the
-    # first cut gated on the global count, wrongly rejecting 8 global
-    # chains on 2 devices and missing 16 global chains on 2 devices).
-    n_shard = (cfg.n_chains // mesh.devices.size if mesh is not None
-               else cfg.n_chains)
-    if K > 1 and n_shard == 8 and not _interp:
-        # Measured Mosaic compiler crash (round 4): the K>1 super-block
-        # kernel SIGABRTs tpu_compile_helper at EXACTLY n_chains=8 (one
-        # f32 sublane tile), any d, any K>1 — n=4/6/10/12/16/32 all
-        # compile and run. Guard with a clear error rather than let the
-        # backend abort. Interpret mode (CPU) never invokes Mosaic and
-        # stays valid (round-4 code review: the first cut raised
-        # unconditionally and broke previously-green CPU configs); the
-        # per-block engine (z_update_every=1) is unaffected at n=8.
-        raise ValueError(
-            "fused_z_update > 1 with 8 chains per device hits a Mosaic "
-            "compiler crash on TPU (see samplers/dream_fused.py) — use "
-            "z_update_every=1 or a different per-device chain count")
     axis = CHAIN_AXIS if mesh is not None else None
     G = cfg.archive_thin
     CG = K * G                     # generations per kernel / super-block
@@ -271,17 +193,7 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
         n, dim = state.x.shape
         dtype = state.x.dtype
         lp_block = _lp_block_for(dim)
-        kernel_rng = rng == "kernel"
-        # kernel-RNG shrinks the per-chain threefry block to the scalar
-        # + row words (the 3d mask/e/eps words move into the kernel)
-        nw = 5 + n_rows + (0 if kernel_rng and not _test_stream_bits
-                           else 3 * dim)
-        interp = (jax.default_backend() != "tpu" if interpret is None
-                  else interpret)
-        if kernel_rng and interp and not _test_stream_bits:
-            raise ValueError(
-                "rng='kernel' needs the TPU hardware PRNG (the interpret "
-                "stub returns zeros); use rng='stream' off-TPU")
+        nw = 5 + n_rows + 3 * dim
         gid = chain_offset(n, axis) + jnp.arange(n, dtype=jnp.int32)
         cr_cum = state.cr_cum  # frozen post-burn-in (check_fusable scope)
 
@@ -306,50 +218,22 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
             u_acc = u_all[..., 4]
             row_bits = blk[..., 5:5 + n_rows]
             off = 5 + n_rows
-            if not kernel_rng:
-                u_mask = u_all[..., off:off + dim]
-                u_e = u_all[..., off + dim:off + 2 * dim]
-                eps_n = uniform_to_normal(u_all[..., off + 2 * dim:])
-            else:
-                # one PRNG seed word per generation, drawn from a folded
-                # branch of the same threefry hierarchy (reproducible
-                # given base_key; disjoint from the main stream). The
-                # GLOBAL chain offset folds in too: without it every
-                # mesh shard would seed the in-kernel PRNG identically
-                # and chains would draw the same randomness on every
-                # device (cross-shard correlation, review finding). On
-                # the vmap path the offset is 0 — a plain fold.
-                seeds = _kernel_rng_seeds(
-                    keys, chain_offset(n, axis))
+            u_mask = u_all[..., off:off + dim]
+            u_e = u_all[..., off + dim:off + 2 * dim]
+            eps_n = uniform_to_normal(u_all[..., off + 2 * dim:])
 
-            # per-chain scalars, mirroring the pallas branch of
-            # samplers/dream.py propose_all; cr_cum is the frozen
-            # steady-state table so this too is chunk-independent
+            # cr_cum is the frozen steady-state table, so this too is
+            # chunk-independent
             cr_idx = jnp.minimum(
                 jnp.sum(u_cr[..., None] >= cr_cum[None, None, :],
                         axis=-1),
                 cfg.n_cr - 1).astype(jnp.int32)
-            delta = 1 + jnp.floor(u_scal[..., 1] * n_pairs)
-            delta = jnp.minimum(delta, float(n_pairs)).astype(dtype)
-            cr = (cr_idx + 1).astype(dtype) / cfg.n_cr
-            gamma_s = cfg.snooker_lo + \
-                (cfg.snooker_hi - cfg.snooker_lo) * u_scal[..., 2]
-            is_snk = ((cfg.p_snooker > 0.0)
-                      & (u_scal[..., 0] < cfg.p_snooker)).astype(dtype)
             gj = ((ts % cfg.jump_interval) == (cfg.jump_interval - 1))
-            gj = jnp.broadcast_to(
-                gj[:, None], (B, n)).astype(dtype)
-            if cfg.jump_full_cr:
-                cr = jnp.where(gj > 0, jnp.asarray(1.0, dtype), cr)
-            scal = jnp.stack(
-                [delta, cr, gamma_s, is_snk, gj, jnp.log(u_acc)], axis=-1)
-            if not kernel_rng:
-                return row_bits, scal, (u_mask, u_e, eps_n)
-            if _test_stream_bits:
-                tb = tuple(blk[..., off + j * dim:off + (j + 1) * dim]
-                           for j in range(3))
-                return row_bits, scal, (seeds, tb)
-            return row_bits, scal, (seeds,)
+            gj = jnp.broadcast_to(gj[:, None], (B, n)).astype(dtype)
+            scal = jnp.concatenate(
+                [proposal_scalars(cfg, u_scal, cr_idx, gj, dtype),
+                 jnp.log(u_acc)[..., None]], axis=-1)
+            return row_bits, scal, (u_mask, u_e, eps_n)
 
         def chunk_core(carry, xs):
             """One CG-generation super-block from pregenerated inputs:
@@ -364,32 +248,15 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
             # per-generation engine (identical bits → identical rows);
             # with K > 1 every generation in the super-block samples
             # the super-block-start archive (fill and contents)
-            if interp:
-                row_idx = jax.vmap(jax.vmap(
-                    lambda bb: distinct_from_bits(
-                        bb, n_rows, st.archive.fill)))(row_bits)
-            else:
-                from bipymc_tpu.ops.distinct_idx import distinct_idx_pallas
-                row_idx = distinct_idx_pallas(
-                    row_bits.reshape(CG * n, n_rows), n_rows,
-                    st.archive.fill).reshape(CG, n, n_rows)
-            rows = _gather_rows(st.archive.buf, row_idx, gather_mode,
-                                interpret=interp)    # [CG, n, k, d]
-
-            if not kernel_rng:
-                u_mask, u_e, eps_n = rng_in
-                xh, lph, acc = fused_chunk_pallas(
-                    st.x, st.logp, rows, u_mask, u_e, eps_n, scal,
-                    lp_block, n_pairs=n_pairs, d_true=dim,
-                    b=cfg.b, b_star=cfg.b_star, interpret=interp)
-            else:
-                seeds = rng_in[0]
-                tb = rng_in[1] if _test_stream_bits else None
-                xh, lph, acc = fused_chunk_pallas(
-                    st.x, st.logp, rows, None, None, None, scal,
-                    lp_block, n_pairs=n_pairs, d_true=dim,
-                    b=cfg.b, b_star=cfg.b_star, interpret=interp,
-                    rng="kernel", seeds=seeds, test_bits=tb)
+            row_idx = jax.vmap(jax.vmap(
+                lambda bb: distinct_from_bits(
+                    bb, n_rows, st.archive.fill)))(row_bits)
+            rows = st.archive.buf[row_idx]               # [CG, n, k, d]
+            u_mask, u_e, eps_n = rng_in
+            xh, lph, acc = fused_chunk_pallas(
+                st.x, st.logp, rows, u_mask, u_e, eps_n, scal,
+                lp_block, n_pairs=n_pairs, d_true=dim,
+                b=cfg.b, b_star=cfg.b_star)
 
             x_new = xh[-1]
             logp_new = lph[-1]

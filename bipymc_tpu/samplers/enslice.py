@@ -28,7 +28,7 @@ Parallelisation is emcee/zeus's red-black scheme exactly as
 samplers/stretch.py implements it: two half-updates per generation, each
 half moving simultaneously against the frozen other half — detailed
 balance holds because η and the slice procedure depend only on frozen
-walkers. TPU shape: the stepping-out and shrinkage loops are
+walkers. Accelerator shape: the stepping-out and shrinkage loops are
 ``lax.while_loop``s per walker (data-dependent trip count — batch-max
 cost under vmap with finished lanes frozen, like NUTS / elliptical
 slice); one target eval per loop iteration. On ``mesh=`` the population
@@ -42,14 +42,12 @@ by construction and μ only controls *cost* (expansions per generation),
 not correctness — the practical "no knobs" sampler for moderate-d
 posteriors, and its acceptance does not decay with dimension the way
 the a=2 stretch factor's does (measured 0.33 → 0.16 from d=16 → 64
-while slice stays at 1.0). Measured placement (hardware A/Bs,
-docs/ROUND3.md §34 + §38): ESS *per generation* is 2.2–3.7× stretch's,
+while slice stays at 1.0). ESS *per generation* is 2.2–3.7× stretch's,
 but under SPMD population execution the while_loops pay the BATCH-MAX
 eval count per generation (~10 full-population evals vs stretch's 1;
-finished lanes ride the masked batch eval), so stretch wins wall-clock
-ESS/s at EVERY target cost — measured 4.5× on a data-sized regression
-likelihood (~73 µs per in-scan batched eval), where the cost ratio has
-already converged to its asymptote (10.0× at eval-dominated cost).
+finished lanes ride the masked batch eval), so stretch can be expected
+to win wall-clock ESS/s at every target cost once the eval dominates
+(device rates: not measured on the GPU yet).
 An earlier draft predicted a crossover from per-walker MEAN eval
 counts (3.8 vs 2); that accounting is wrong on batched hardware.
 enslice's slot is therefore robustness, not throughput: acceptance

@@ -19,7 +19,7 @@ Gaussian factor cancels exactly and only the *likelihood* enters the
 slice test — the prior is sampled perfectly regardless of its condition
 number (the regime where RW/HMC step sizes collapse).
 
-TPU mapping: the shrinkage loop is one ``lax.while_loop`` per chain per
+Accelerator mapping: the shrinkage loop is one ``lax.while_loop`` per chain per
 generation (data-dependent trip count, like NUTS — SURVEY.md §9); under
 ``vmap`` it runs to the batch-max iteration count with finished lanes
 frozen. Murray et al. prove termination (as θ→0, x'→x whose likelihood

@@ -4,7 +4,7 @@ local random walk.
 Beyond-reference extra (the flowMC pattern: Gabrié, Rotskoff &
 Vanden-Eijnden PNAS 2022; Wong, Gabrié & Foreman-Mackey JOSS 2023).
 The DE/archive family's measured cross-mode hop rate on the headline
-config-3 target is 2.8e-5 per chain-generation (docs/ROUND3.md §2) —
+config-3 target is 2.8e-5 per chain-generation —
 the proposal NOISE buries the mode displacement at d=100. A density q
 fit to a stratified population makes the complement kernel: an
 INDEPENDENCE Metropolis-Hastings proposal x* ~ q with
@@ -38,7 +38,7 @@ logdet), so the kernel targets the EXACT posterior regardless of how
 rough the fit is — fit quality moves the acceptance rate, never the
 stationary distribution.
 
-TPU shape: a generation is d-sized matmuls (the flow's MLPs) + one
+Accelerator shape: a generation is d-sized matmuls (the flow's MLPs) + one
 vmapped target batch — all fixed shapes, one fused program. Chains are
 fully independent (the flow rides along replicated), so ``mesh=``
 shards with ZERO in-step collectives, like the HMC family; per-chain

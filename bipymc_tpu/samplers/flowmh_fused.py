@@ -1,10 +1,8 @@
 """Fused multi-generation engine for the global-move (FlowMh) sampler.
 
-Round-3 measured the per-generation FlowMh at 565 gens/s on the headline
-config-3 shape vs 27.7k for plain DREAM-zs (benchmarks/
-flowmh_headline.json) — 50× for a kernel whose local moves are plain
-Gaussian RW MH. Two structural fixes close most of it (round-4 verdict
-item #3):
+A per-generation FlowMh step pays its global move's proposal density
+passes every generation, plus one launch per fusion for local moves that
+are plain Gaussian RW MH. Two structural fixes remove most of that:
 
 1. **Amortize the global move** (``FlowMhConfig.global_every``): one
    independence move every K generations is still exactly π-invariant
@@ -13,8 +11,8 @@ item #3):
 2. **Fuse the local-RW block**: the K·local_moves RW MH moves between
    global moves are exactly the MH mode of ``ops/fused_rw_chunk.py``
    (delayed=False, frozen diagonal scale), so a whole inter-global
-   segment runs as ONE Pallas kernel with (x, logp) carried in VMEM
-   scratch; the global move executes between kernel launches in XLA
+   segment runs as ONE Pallas kernel with (x, logp) carried inside it;
+   the global move executes between kernel launches in XLA
    (its per-chunk cost: one proposal log-density pass + one target
    batch + one proposal sample).
 
@@ -67,8 +65,6 @@ def check_flowmh_fusable(cfg: FlowMhConfig, mesh=None,
 def make_flowmh_chunk_runner(log_prob: Callable, proposal: Proposal,
                              cfg: FlowMhConfig, n_chains: int,
                              log_prob_block: Callable | None = None,
-                             interpret: bool | None = None,
-                             steps_per_cell: int | None = None,
                              mesh=None, wrap: bool = True) -> Callable:
     """Build ``run(state, base_key, n_gens, t0) -> (state, history)``.
 
@@ -79,8 +75,8 @@ def make_flowmh_chunk_runner(log_prob: Callable, proposal: Proposal,
     history: ``{"x", "logp", "accepted", "accepted_local"}`` — the same
     leaves as ``api._flowmh_collect`` per generation.
 
-    mesh: optional 1-D chain mesh (round-5 verdict #2 — SURVEY §3.2:
-    "the mesh path turns on above one device with the same step
+    mesh: optional 1-D chain mesh (SURVEY §3.2: "the mesh path turns on above
+    one device with the same step
     function"). FlowMh chains are fully independent and the proposal is
     frozen/replicated, so the SPMD program has ZERO in-step
     collectives: each device runs the fused Pallas kernel on its chain
@@ -100,15 +96,6 @@ def make_flowmh_chunk_runner(log_prob: Callable, proposal: Proposal,
     G = int(cfg.global_every)
     L = int(cfg.local_moves)
     K_loc = G * L
-    if steps_per_cell is None:
-        spc = max(s for s in (1, 2, 5, 10) if K_loc % s == 0)
-    else:
-        spc = int(steps_per_cell)
-        if K_loc % spc != 0:
-            raise ValueError(f"steps_per_cell={spc} must divide the "
-                             f"chunk's {K_loc} local moves")
-    interp = (jax.default_backend() != "tpu" if interpret is None
-              else interpret)
     _lp_block_for = lp_block_cache(log_prob, log_prob_block)
 
     def runner_local(state: FlowMhState, base_key, n_gens: int, t0):
@@ -156,7 +143,7 @@ def make_flowmh_chunk_runner(log_prob: Callable, proposal: Proposal,
             scal = jnp.stack([zk, zk, log_u, zk], axis=-1)
             xh, lph, accl, _stage = fused_rw_chunk_pallas(
                 st.x, st.logp, dy1, None, scal, lp_block,
-                delayed=False, interpret=interp, steps_per_cell=spc)
+                delayed=False)
             x_end, lp_end = xh[-1], lph[-1]
 
             # global independence move at the chunk's last generation —

@@ -25,12 +25,12 @@ constrained-replacement kernel is pure geometry: any symmetric move
 accepted iff L(θ(u')) > L* leaves the constrained uniform distribution
 invariant.
 
-TPU-native design — batched deaths, one while_loop:
+accelerator-native design — batched deaths, one while_loop:
 
 - Classic NS kills ONE point per iteration: a serial, scalar-bound
   recursion. Here each iteration kills the B = ``n_batch`` worst live
   points at once and replaces all B in parallel — the likelihood is
-  evaluated [B]-batched (vmap → MXU-friendly), and the volume
+  evaluated [B]-batched (vmap → matmul-friendly), and the volume
   bookkeeping stays exact via the sequential view: the j-th death
   (j = 0..B-1, ascending L) occurs with K−j points alive, so its log-
   volume decrement is E[log t] = 1/(K−j) and its width is
@@ -56,7 +56,7 @@ TPU-native design — batched deaths, one while_loop:
     iff the likelihood clears L*; γ Robbins–Monro-adapts across
     batches toward ``target_accept`` (frozen within a batch, so each
     batch's kernel is a fixed symmetric kernel).
-  Measured (docs/ROUND3.md §39): imperfect replacement decorrelation
+  Measured: imperfect replacement decorrelation
   biases logZ HIGH (clustered replacements slow the order-statistics
   shrinkage), and the walk needs ~3–4× the likelihood evals of the
   slice kernel to push the bias under the √(H/K) error bar — slice
@@ -74,7 +74,7 @@ TPU-native design — batched deaths, one while_loop:
   are the sharded axis under ``mesh=`` (all cross-walker decisions —
   top_k, widths, evidence — are replicated full-population math;
   per-walker RNG folds by GLOBAL walker index, so mesh and vmap paths
-  see identical streams — the gather-then-reduce rule, ROUND3 §11).
+  see identical streams — the gather-then-reduce rule).
 
 Scope limits, stated plainly: the constrained DE walk assumes the live
 set spans the constrained region — like every region-based replacement
@@ -119,7 +119,7 @@ class NsConfig(NamedTuple):
         shrinkage; no scale knob, and no rejected-stay clustering, so
         the replacement-decorrelation logZ bias of a random walk is
         structurally absent (measured: the "walk" kernel needs ~4×
-        the evals for the same bias level — docs/ROUND3.md §39).
+        the evals for the same bias level).
         "walk": γ-scaled DE random walk accepted on the constraint
         (cheaper per rep on eval-dominated targets; scale adapted).
     gamma0: initial DE step scale γ (kernel="walk"); None → 2.38/√(2d).

@@ -9,7 +9,7 @@ tree doubling until the path starts to double back (Hoffman & Gelman
 weighted by its joint density exp(ℓ(x) − K(p)), sampled progressively —
 no slice variable, no MH accept step.
 
-TPU-native design notes (why this looks nothing like the recursive
+accelerator-native design notes (why this looks nothing like the recursive
 reference pseudocode):
 
 - **No recursion, no dynamic allocation.** The textbook algorithm builds

@@ -1,6 +1,6 @@
 """Proposal distributions.
 
-TPU-native equivalent of the reference's ``McmcProposal`` /
+accelerator-native equivalent of the reference's ``McmcProposal`` /
 ``GaussianProposal`` classes (SURVEY.md §3, `bipymc/samplers.py` [U]):
 stateless functions over a Cholesky factor instead of mutable objects, so
 they vmap over chains and live inside jitted scans.

@@ -1,6 +1,7 @@
 """Random-walk sampler family: MH → AM → DR → DRAM, one pure step.
 
-TPU-native redesign of the reference's ``Metropolis`` / ``AdaptiveMetropolis``
+accelerator-native redesign of the reference's ``Metropolis`` /
+``AdaptiveMetropolis``
 / ``DrMetropolis`` / ``Dram`` classes (SURVEY.md §3, `bipymc/samplers.py` [U];
 math contract SURVEY.md §4.1–4.4). DRAM is the general case; MH/AM/DR are
 config restrictions, so the whole family is ONE pure
@@ -96,6 +97,9 @@ def init(theta0: jax.Array, log_prob: Callable, cov0: jax.Array) -> RwState:
     )
 
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def adapt_update(cfg, sd, mean, m2, count, chol, theta_new, t):
     """Haario AM update of the per-chain (mean, scatter, count, Cholesky)
     tuple (§4.2) — the shared recursion behind the RW family's step AND
@@ -180,7 +184,9 @@ def make_step(log_prob: Callable, cfg: RwConfig,
         z1, z2, uu1, uu2 = draws(key, t, d, dtype)
 
         # ---- stage 1: y₁ ~ N(x, C₁) -------------------------------------
-        y1 = state.theta + state.chol @ z1
+        # HIGHEST: a float32 product may otherwise run in TF32 on the GPU,
+        # and the fused engine (rw_fused.py) must draw the same proposal
+        y1 = state.theta + jnp.matmul(state.chol, z1, precision=_HIGHEST)
         l1 = log_prob(y1)
         log_a1 = jnp.minimum(0.0, l1 - state.logp)
         # non-finite hard-reject (SURVEY §7.2 sanitizer contract; round-5
@@ -195,7 +201,8 @@ def make_step(log_prob: Callable, cfg: RwConfig,
         if cfg.delayed:
             # ---- stage 2: y₂ ~ N(x, C₁/κ), Green–Mira ratio (§4.3) ------
             inv_sqrt_kappa = jnp.asarray(1.0 / jnp.sqrt(cfg.kappa), dtype)
-            y2 = state.theta + (state.chol * inv_sqrt_kappa) @ z2
+            y2 = state.theta + jnp.matmul(state.chol * inv_sqrt_kappa, z2,
+                                          precision=_HIGHEST)
             l2 = log_prob(y2)
             # α₁(y₂, y₁) — reverse-path stage-1 acceptance
             log_a1_rev = jnp.minimum(0.0, l1 - l2)
@@ -203,7 +210,7 @@ def make_step(log_prob: Callable, cfg: RwConfig,
             # residuals are available in closed form — y₁ = x + L z₁ and
             # y₂ = x + (L/√κ) z₂ give L⁻¹(y₁−x) = z₁ and
             # L⁻¹(y₁−y₂) = z₁ − z₂/√κ exactly, so the ratio needs NO
-            # triangular solves (they cost ~45% of a DRAM step on TPU)
+            # triangular solves
             w = z1 - inv_sqrt_kappa * z2
             lq_diff = -0.5 * (jnp.sum(w * w) - jnp.sum(z1 * z1))
             log_num = l2 + _log1mexp(log_a1_rev)

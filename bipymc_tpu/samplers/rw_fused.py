@@ -45,9 +45,7 @@ def check_rw_fusable(cfg: RwConfig) -> None:
 
 def make_rw_chunk_runner(log_prob: Callable, cfg: RwConfig, n_chains: int,
                          log_prob_block: Callable | None = None,
-                         interpret: bool | None = None,
-                         chunk_steps: int | None = None,
-                         steps_per_cell: int | None = None) -> Callable:
+                         chunk_steps: int | None = None) -> Callable:
     """Build ``run(state, base_key, n_steps, t0) -> (state, history)``.
 
     state: the BATCHED RwState (leaves with a leading [n_chains] axis —
@@ -61,17 +59,6 @@ def make_rw_chunk_runner(log_prob: Callable, cfg: RwConfig, n_chains: int,
     """
     check_rw_fusable(cfg)
     K = int(cfg.adapt_interval) if cfg.adapt else int(chunk_steps or 100)
-    if steps_per_cell is None:
-        # amortise the per-grid-cell DMA latency over a few steps (the
-        # per-step blocks are tiny); identical results for every value
-        spc = max(s for s in (1, 2, 5, 10) if K % s == 0)
-    else:
-        spc = int(steps_per_cell)
-        if K % spc != 0:
-            raise ValueError(f"steps_per_cell={spc} must divide the "
-                             f"chunk length K={K}")
-    interp = (jax.default_backend() != "tpu" if interpret is None
-              else interpret)
     _lp_block_for = lp_block_cache(log_prob, log_prob_block)
 
     def runner(state: RwState, base_key, n_steps: int, t0):
@@ -113,10 +100,11 @@ def make_rw_chunk_runner(log_prob: Callable, cfg: RwConfig, n_chains: int,
         def chunk(st: RwState, ci):
             ts = t0 + ci * K + jnp.arange(K, dtype=jnp.int32)
             z1, z2, uu1, uu2 = prep(ts)
-            dy1 = jnp.einsum("nij,knj->kni", st.chol, z1)
+            hi = jax.lax.Precision.HIGHEST      # as samplers/rw.py step
+            dy1 = jnp.einsum("nij,knj->kni", st.chol, z1, precision=hi)
             if cfg.delayed:
                 dy2 = inv_sqrt_kappa * jnp.einsum(
-                    "nij,knj->kni", st.chol, z2)
+                    "nij,knj->kni", st.chol, z2, precision=hi)
                 w = z1 - inv_sqrt_kappa * z2
                 scal = jnp.stack(
                     [jnp.sum(z1 * z1, -1), jnp.sum(w * w, -1),
@@ -130,8 +118,7 @@ def make_rw_chunk_runner(log_prob: Callable, cfg: RwConfig, n_chains: int,
                 scal = jnp.stack([zk, zk, jnp.log(uu1), zk], axis=-1)
             xh, lph, acc, _stage = fused_rw_chunk_pallas(
                 st.theta, st.logp, dy1, dy2, scal, lp_block,
-                delayed=cfg.delayed, interpret=interp,
-                steps_per_cell=spc)
+                delayed=cfg.delayed)
 
             if cfg.adapt:
                 # bit-exact Welford replay of the per-step updates the

@@ -16,15 +16,16 @@ geometry (Chopin & Papaspiliopoulos 2020, ch. 17): random-walk MH with
 the population covariance (``kernel="rw"``), or leapfrog HMC with
 population-variance mass and a cross-stage adapted step size
 (``kernel="hmc"`` — see the SmcConfig.kernel docstring for when the
-gradient kernel is the difference between working and collapsing). It delivers the two things the MCMC zoo
-structurally cannot on the headline multimodal target (docs/ROUND3.md
-§2): **self-consistent mode weights** (the population is transported
+gradient kernel is the difference between working and collapsing). It delivers
+the two things the MCMC zoo
+structurally cannot on the headline multimodal target: **self-consistent mode
+weights** (the population is transported
 through the annealing path, so separated modes keep their correct
 relative mass — no inter-mode mixing required) and an unbiased
 **log-evidence** estimate (the telescoped product of per-stage
 normalising increments).
 
-TPU-native design:
+accelerator-native design:
 
 - The whole run is ONE ``lax.while_loop`` over stages — no host
   round-trip per stage. Each stage body: (1) next-β by fixed-iteration
@@ -37,8 +38,8 @@ TPU-native design:
   ``[max_stages]`` buffers at the stage index.
 - Particle parallelism mirrors the chain pool (SURVEY.md §3.1): under
   ``mesh=`` the MH moves run on the particle shards; every cross-
-  particle float reduction follows the gather-then-reduce rule
-  (docs/ROUND3.md §11) — per-particle scalars and positions are
+  particle float reduction follows the gather-then-reduce rule — per-particle
+  scalars and positions are
   all_gathered once per stage and the *identical* full-axis math runs
   replicated on every shard (weights, bisection, resample indices,
   covariance), so mesh and vmap paths consume identical streams and
@@ -89,8 +90,8 @@ class SmcConfig(NamedTuple):
         between working and collapsing: RW moves relax a basin's shape
         in O(d) moves, and the un-relaxed group lag couples into the
         resampling as a basin-level selection noise that drives one
-        basin extinct (measured at d=48 — module docstring / ROUND3
-        §21); HMC relaxes in O(1) trajectories, killing the feedback.
+        basin extinct (measured at d=48 — module docstring /); HMC relaxes in
+        O(1) trajectories, killing the feedback.
     bisect_iters: fixed halvings for the β' solve (30 ≈ f32 exact).
     max_stages: while_loop bound + diagnostics buffer length. The loop
         exits early at β=1; hitting max_stages is surfaced in the result.
@@ -229,7 +230,7 @@ def make_runner(log_ref: Callable, log_target: Callable, cfg: SmcConfig,
         k_stage = jax.random.fold_in(s.key, s.stage)
         k_res, k_move = jax.random.split(k_stage)
 
-        # ---- gather-then-reduce (ROUND3 §11): assemble the GLOBAL
+        # ---- gather-then-reduce: assemble the GLOBAL
         # population once; all cross-particle float math below runs
         # replicated and identically associated on every shard --------
         xg = all_gather_chains(s.x, axis_name)        # [N, d]

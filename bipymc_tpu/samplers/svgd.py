@@ -14,14 +14,15 @@ with the RBF kernel k(x, y) = exp(−‖x−y‖² / (2h²)) and the paper's
 median-trick bandwidth 2h² = median(‖x_i−x_j‖²) / log(N+1), stepped by
 the paper's AdaGrad-with-momentum rule.
 
-Why it earns a place in this zoo, TPU-first: the update is ONE [N,N]
+Why it earns a place in this zoo, accelerator-first: the update is ONE [N,N]
 kernel-matrix build (the same centered ‖·‖² decomposition the GP module
-feeds the MXU through — ops/pallas_kernels.pairwise_sqdist) plus two
+uses — ops/distance.pairwise_sqdist) plus two
 [N,N]×[N,d] matmuls and a batch of target gradients (`jax.value_and_grad`
 of the same ``log_prob`` every sampler here consumes — including the
 differentiable GP surrogate). No acceptance step, no rejection waste, no
 RNG after init: the entire run is a deterministic `lax.scan` of dense
-linear algebra, which is as MXU-native as an inference algorithm gets.
+linear algebra, which is as accelerator-native as an inference
+algorithm gets.
 Where MCMC prices its answer in autocorrelation, SVGD prices it in
 particle count: N particles are N quadrature points of the posterior,
 useful as a fast approximate posterior, a warm-start population for the
@@ -34,8 +35,8 @@ Honesty notes, measured/known failure modes stated plainly:
   with the kernel; for modes ≫ bandwidth apart the particles in each
   basin feel only their own basin plus the repulsion, and the mode
   WEIGHTS freeze near their init fractions (SVGD has no between-mode
-  transport mechanism — same structural issue ROUND3.md §2 documents
-  for DE jumps at d=100). On such targets use Smc (mode weights +
+  transport mechanism — the same structural issue DE jumps have at
+  d=100). On such targets use Smc (mode weights +
   evidence) or ParallelTempering; SVGD's lane is unimodal-ish targets
   and fast approximate posteriors.
 - **Variance underestimation in high d** (the well-documented SVGD
@@ -47,7 +48,7 @@ Sharding contract (mesh=): the particle axis shards; target gradients
 (the dominant cost for expensive likelihoods, e.g. the GP surrogate)
 are evaluated shard-locally, positions/gradients are all_gathered once
 per step, and the kernel/bandwidth DECISION math runs replicated on the
-gathered arrays (the gather-then-reduce rule, docs/ROUND3.md §11) — the
+gathered arrays (the gather-then-reduce rule) — the
 median bandwidth is bit-identical to the vmap run by construction. The
 per-shard φ row-block matmuls may round ~1 ulp differently from the
 full-batch vmap program (the house cross-shape FMA floor); pinned
@@ -61,7 +62,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from bipymc_tpu.ops.pallas_kernels import pairwise_sqdist
+from bipymc_tpu.ops.distance import pairwise_sqdist
 from bipymc_tpu.parallel.collectives import (all_gather_chains,
                                              chain_offset)
 
@@ -159,7 +160,7 @@ def make_step(log_prob: Callable, cfg: SvgdConfig,
         # φ rows: attraction K@G plus repulsion Σ_j ∇_{x_j}k =
         # (2/h2)·(x_i·Σ_j K_ij − K@X)
         ksum = jnp.sum(k_rows, axis=1, keepdims=True)  # [n_local, 1]
-        attract = k_rows @ g_all                       # MXU contraction
+        attract = k_rows @ g_all                       # matmul
         repulse = (s.x * ksum - k_rows @ x_all) * (2.0 / h2)
         phi = (attract + repulse) / nf                 # [n_local, d]
 

@@ -11,7 +11,8 @@ target ∏_k π(x_k)^{β_k} is
 with deterministic even/odd pair alternation (the DEO scheme) so every
 swap generation is one vectorised, collective-free update.
 
-TPU mapping: replicas are ANOTHER batch axis — states are stacked pytrees
+Accelerator mapping: replicas are ANOTHER batch axis — states are stacked
+pytrees
 [n_temps, n_chains, ...] advanced by a temps×chains double-vmap of the
 single-chain step; swaps are pure index shuffles. Everything lives in one
 ``lax.scan``.

@@ -108,12 +108,22 @@ def _unflatten_migrating(treedef, leaves, schema=None):
         raise
 
 
+def _orbax():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError:
+        raise ImportError("the orbax checkpoint backend needs the optional "
+                          "orbax-checkpoint package; save_state/load_state "
+                          "need nothing beyond numpy") from None
+    return ocp
+
+
 def save_state_orbax(path, state, step=0):
     """Orbax backend: async-capable, handles sharded (mesh) state leaves
     natively. ``path`` is a directory. Treedef goes in a sidecar pickle
     (orbax restores raw containers, not NamedTuples)."""
     import os
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     path = os.path.abspath(path)
     leaves, treedef = jax.tree_util.tree_flatten(state)
@@ -129,7 +139,7 @@ def save_state_orbax(path, state, step=0):
 def load_state_orbax(path):
     """Load a checkpoint saved by :func:`save_state_orbax` → (state, step)."""
     import os
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     path = os.path.abspath(path)
     with open(os.path.join(path, "meta.pkl"), "rb") as f:

@@ -1,6 +1,6 @@
 """Likelihood validation & NaN guards (SURVEY.md §7.2 rebuild item).
 
-The reference had no sanitisers; the TPU rebuild's equivalents:
+The reference had no sanitisers; this rebuild's equivalents:
 
 - samplers already treat non-finite proposal log-probs as hard rejects
   (see samplers/rw.py, samplers/dream.py), so a likelihood returning

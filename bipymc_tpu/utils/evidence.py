@@ -30,7 +30,7 @@ rung-level diagnostics (R-hat per rung, swap rates) must certify the
 estimate, or when the evidence of an already-running PT workflow is
 wanted at marginal extra cost.
 
-TPU shape: the whole run is one ``lax.scan`` over the stacked
+Accelerator shape: the whole run is one ``lax.scan`` over the stacked
 [n_temps, n_chains] PT step (temps × chains double vmap —
 samplers/tempering.py), with the TI/SS sufficient statistics streamed in
 the carry (running sums + a running logsumexp per interface), so memory

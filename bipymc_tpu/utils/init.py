@@ -1,6 +1,6 @@
 """Chain initialisation helpers.
 
-TPU-native equivalent of the reference's ``var_ball`` utility
+accelerator-native equivalent of the reference's ``var_ball`` utility
 (SURVEY.md §4.10, `bipymc/util.py` [U]): overdisperse chain starting points
 in a Gaussian ball with per-dimension scales, which Gelman-Rubin validity
 requires.

@@ -1,7 +1,8 @@
 """MAP estimate + Laplace proposal covariance (beyond-reference utility).
 
 The reference workflow hand-tunes the random-walk family's ``cov_est``
-(SURVEY.md §5.1: ``Dram(...).run_mcmc(n, theta0, cov_est)``). On TPU the
+(SURVEY.md §5.1: ``Dram(...).run_mcmc(n, theta0, cov_est)``). On an accelerator
+the
 log-posterior is a jitted pure function, so the natural initializer is
 exact: ascend ``log_prob`` with ``jax.grad`` + optax Adam to the mode and
 take the inverse negative Hessian (``jax.hessian`` — d is small in the

@@ -9,11 +9,12 @@ surrogate reweighting — the failure mode (a point so influential that
 leaving it out reshapes the posterior) is *detected*, not silently
 averaged over.
 
-Complements the SMC evidence path (samplers/smc.py, docs/ROUND3.md §21):
+Complements the SMC evidence path (samplers/smc.py):
 log-evidence compares models through the prior (sensitive to prior
 spread); elpd_loo compares predictive performance on the data scale.
 
-TPU mapping: input is a [S, n] pointwise log-likelihood matrix (S draws,
+Accelerator mapping: input is a [S, n] pointwise log-likelihood matrix (S
+draws,
 n observations) — one ``vmap`` of the model's per-point log-density over
 the kept history builds it; the per-point PSIS fits are a second vmap
 over the n axis (static shapes, no host loop: the Zhang-Stephens fit is

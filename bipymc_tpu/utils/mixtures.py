@@ -16,7 +16,7 @@ acceptance → 1 at ANY dimension. The flow remains the tool for warped,
 non-Gaussian basins; the GMM is the tool for metastable Gaussian-ish
 ones. Both plug into the same kernel.
 
-TPU shape: every EM iteration is three matmul-shaped contractions —
+Accelerator shape: every EM iteration is three matmul-shaped contractions —
 responsibilities ([K,n] from a [K]-vmapped triangular solve), weighted
 means ([K,n]@[n,d]), weighted scatter (einsum kn,knd,kne->kde) — plus K
 small Cholesky factorizations. Fixed shapes, one `lax.scan`, fully
@@ -107,23 +107,22 @@ def gmm_log_q_diag(params: GmmParams, x) -> jax.Array:
     """log q(x) specialized to diagonal component covariances.
 
     The generic :func:`gmm_log_q` runs K [d,d] triangular solves per
-    call — row-by-row substitution, the one linalg shape TPUs execute
-    serially; at d=100, K=8 it dominated the FlowMh generation. For a
+    call — row-by-row substitution, a serial linalg shape on any
+    accelerator; at d=100, K=8 it dominated the FlowMh generation. For a
     ``cov_type="diag"`` fit the quadratic form collapses to two [n,d]@
-    [d,K] matmuls (MXU) via the expansion Σ(x−μ)²/σ² = x²·(1/σ²) −
+    [d,K] matmuls via the expansion Σ(x−μ)²/σ² = x²·(1/σ²) −
     2x·(μ/σ²) + Σμ²/σ². Exact same value as the generic path.
 
-    Precision: the matmuls run at ``Precision.HIGHEST`` (house rule,
-    ops/pallas_solve.py). This is LOAD-BEARING, not style: the three
-    expansion terms are each O(‖μ‖²) (~2500 on the d=100 headline
-    target) and cancel to O(d). The TPU MXU default truncates matmul
-    inputs to bf16, whose 2⁻⁸ relative error on those inputs leaves
-    O(nats) of position-dependent noise on log q — measured downstream
-    as a 0.18 mode-occupancy bias in the northstar pipeline with
-    per-dim R̂ still converging (the noise scales with each mode's
-    ‖μ_m‖², so it biases mode exchange systematically; CPU replay of
-    the identical proposal showed no bias). HIGHEST restores f32-level
-    accumulation and costs ~3× on this tiny [n,d]@[d,K] contraction.
+    Precision: the matmuls run at ``Precision.HIGHEST``. This is
+    LOAD-BEARING, not style: the three expansion terms are each
+    O(‖μ‖²) (~2500 on the d=100 headline target) and cancel to O(d).
+    A reduced-precision default (TF32 on the GPU, bf16 passes on other
+    accelerators) truncates the matmul inputs, leaving O(nats) of
+    position-dependent noise on log q — once measured downstream as a
+    0.18 mode-occupancy bias in the northstar pipeline with per-dim R̂
+    still converging (the noise scales with each mode's ‖μ_m‖², so it
+    biases mode exchange systematically). HIGHEST restores f32-level
+    accumulation (tests/test_gpu_kernels.py pins it on the card).
     """
     hi = jax.lax.Precision.HIGHEST
     lead = x.shape[:-1]
@@ -264,8 +263,8 @@ def fit_gmm(key: jax.Array, draws, n_components: int, n_iters: int = 200,
     # Non-finite draws: eager callers get a loud error; jitted callers
     # (the fit is shape-static and fully jittable — benchmark harnesses
     # wrap it to amortize the EM scan's compile) cannot, so the fit
-    # SANITIZES instead of silently trusting the input (round-4 ADVICE:
-    # a single NaN row would otherwise poison EM): non-finite rows get
+    # SANITIZES instead of silently trusting the input (a single NaN row
+    # would otherwise poison EM): non-finite rows get
     # zero responsibility in every E-step, are excluded from the
     # k-means++ seeding, and are replaced by a finite placeholder so no
     # NaN ever enters the arithmetic. Fitting from a jitted pipeline
@@ -287,7 +286,7 @@ def fit_gmm(key: jax.Array, draws, n_components: int, n_iters: int = 200,
 
     # sanitize: zero-weight non-finite rows (see guard note above).
     # n_valid_rows rides in info, and an ALL-invalid input NaN-poisons
-    # the returned weights (round-5 review: a silently returned
+    # the returned weights (a silently returned
     # point-mass at the placeholder would flow into gmm_proposal with
     # no error anywhere; under jit we cannot raise, so make the
     # failure loudly non-finite instead).

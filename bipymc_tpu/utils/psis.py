@@ -13,7 +13,7 @@ k̂ < 0.7 → the reweighted estimate converges with useful variance,
 k̂ ≥ 0.7 → the surrogate is too wrong in the tails, retrain it (or
 sample the exact target directly).
 
-TPU mapping: everything is static-shape sorting + reductions — the GPD
+Accelerator mapping: everything is static-shape sorting + reductions — the GPD
 fit is the Zhang & Stephens (2009) profile posterior on a fixed grid of
 m = 30+⌊√M⌋ slope candidates (no iterative optimiser), so the whole
 pipeline jits and the exact-likelihood evaluation it needs (one batch

@@ -10,7 +10,7 @@ targets the exact posterior** — any bias (wrong acceptance ratio, a
 mis-scaled Jacobian, a broken proposal) shows up as a non-uniform rank
 histogram, including biases that moment tests are blind to.
 
-TPU shape: each replication is an independent (data, chain) pair, so
+Accelerator shape: each replication is an independent (data, chain) pair, so
 the whole study is ONE vmapped program — the functional core's
 `make_step` closes over that replication's simulated data under the
 outer vmap, and K replications × (burn + M·thin) steps run as a single
@@ -108,8 +108,7 @@ def sbc_ranks(prior_sample: Callable, simulate: Callable,
         cfg = base._replace(step_size=step_size, adapt_gens=burn)
     elif sampler == "demcz":
         cfg = _dream.demcz_config(n_chains)._replace(
-            burnin_gens=0, adapt_cr=False, outlier_detect=False,
-            pallas_proposal=False)
+            burnin_gens=0, adapt_cr=False, outlier_detect=False)
     elif sampler == "chees":
         # cross-chain adaptation lives inside ``burn`` and freezes
         # before the ranked draws (adapt_gens=burn, like hmc); the

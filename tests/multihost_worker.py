@@ -64,8 +64,7 @@ def main():
 def run_dream_across_processes(mesh, pid):
     """Drive ChainPool DREAM-zs generations with the population sharded
     ACROSS OS PROCESSES and assert bit-identity with the single-process
-    vmap run (round-2 verdict #3: the multihost test previously exercised
-    only a psum, never a sampler step; this is the mpiexec-equivalent
+    vmap run (a SAMPLER step, not just a psum: the mpiexec-equivalent
     contract of SURVEY.md §3.2/§6 actually executed).
 
     Every process builds the identical global start state host-side

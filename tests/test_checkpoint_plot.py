@@ -234,8 +234,7 @@ def test_plot_geweke(tmp_path):
 
 def test_plot_short_labels_no_indexerror(tmp_path):
     """A labels list shorter than d must fall back to θj, not
-    IndexError (round-4 verdict Weak #7 / ADVICE guard, applied to
-    every plot kind that takes labels)."""
+    IndexError — in every plot kind that takes labels."""
     from bipymc_tpu.plotting import (
         plot_geweke, plot_rank, plot_sbc_ranks)
     rng = np.random.default_rng(1)

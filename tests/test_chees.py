@@ -174,7 +174,7 @@ def test_continuation_contract_warns():
 
 
 def test_divergent_chain_does_not_poison_adaptation():
-    """Regression (round-3 review): chain 0 starts out of support, so
+    """Regression: chain 0 starts out of support, so
     its gradient is NaN and its trajectory is non-finite EVERY warmup
     generation. Pre-fix, that one chain's gathered x1 row NaN'd the
     α-weighted proposal centre (0·NaN), the whole-population τ-gradient

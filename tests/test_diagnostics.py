@@ -96,7 +96,7 @@ def test_per_dim_tau_identifies_slow_dimension():
 
 
 def test_mode_occupancy_and_hops():
-    """Multimodality diagnostics (round-2 verdict #2): occupancy counts
+    """Multimodality diagnostics: occupancy counts
     chains per nearest mode; hops counts nearest-mode transitions."""
     import jax.numpy as jnp
     import numpy as np

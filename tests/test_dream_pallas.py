@@ -1,119 +1,84 @@
-"""Fused Pallas proposal-math kernel ≡ the reference jnp path.
+"""Block proposal math (ops/dream_proposal.propose_block, which the fused
+kernel runs) ≡ the per-chain reference ``dream.propose_math_one``.
 
-Both paths consume identical randomness (draw_one is shared); the fused
-kernel may differ only by float re-association. Run in TPU interpret mode
-on CPU (SURVEY.md §6: Pallas kernels validated by interpret-mode
-equivalence tests).
+Both consume identical randomness; the block form works on zero-padded
+power-of-two columns with rows passed as separate blocks, so it may
+differ only by float re-association.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
+import pytest
 
+from bipymc_tpu.ops.dream_proposal import propose_block
+from bipymc_tpu.ops.route import next_pow2
 from bipymc_tpu.samplers import dream
-from bipymc_tpu.utils.init import var_ball
+from bipymc_tpu.samplers.dream_fused import proposal_scalars
 
 
-def _setup(n=32, d=10, capacity=256, seed=0, **cfg_kw):
-    cfg_ref = dream.DreamConfig(n_chains=n, pallas_proposal=False, **cfg_kw)
-    cfg_pl = dream.DreamConfig(n_chains=n, pallas_proposal=True, **cfg_kw)
-    log_prob = lambda t: -0.5 * jnp.sum(t ** 2)
-    key = jax.random.key(seed)
-    k1, k2 = jax.random.split(key)
-    x0 = var_ball(k1, jnp.ones(d), n)
-    z0 = var_ball(k2, jnp.ones(d), max(n, 16))
-    st_ref = dream.init(x0, log_prob, cfg_ref, capacity, z0)
-    st_pl = dream.init(x0, log_prob, cfg_pl, capacity, z0)
-    return log_prob, cfg_ref, cfg_pl, st_ref, st_pl
+def _compare(cfg, n, d, seed, gamma_jump=False):
+    dtype = jnp.float32
+    n_rows = max(2 * cfg.delta_max, 3)
+    ks = jax.random.split(jax.random.key(seed), 7)
+    x = jax.random.normal(ks[0], (n, d), dtype)
+    rows = jax.random.normal(ks[1], (n, n_rows, d), dtype) * 2.0
+    u_scal = jax.random.uniform(ks[2], (n, 3), dtype)
+    cr_idx = jax.random.randint(ks[3], (n,), 0, cfg.n_cr)
+    u_mask = jax.random.uniform(ks[4], (n, d), dtype)
+    u_e = jax.random.uniform(ks[5], (n, d), dtype)
+    eps_n = jax.random.normal(ks[6], (n, d), dtype)
+    gj = jnp.asarray(gamma_jump)
+
+    ref_x, ref_lj, ref_snk = jax.vmap(
+        lambda *a: dream.propose_math_one(cfg, *a, gj, dtype))(
+            x, u_scal, rows, cr_idx, u_mask, u_e, eps_n)
+
+    d_p = next_pow2(d)
+
+    def pad(a, fill=0.0):
+        return jnp.pad(a, ((0, 0), (0, d_p - d)), constant_values=fill)
+
+    scal = proposal_scalars(cfg, u_scal, cr_idx,
+                            jnp.full((n,), float(gamma_jump), dtype), dtype)
+    cols = [scal[:, c:c + 1] for c in range(5)]
+    x_star, log_jac, snk = propose_block(
+        pad(x), [pad(rows[:, j]) for j in range(n_rows)],
+        pad(u_mask, fill=2.0), pad(u_e), pad(eps_n), *cols,
+        cfg.delta_max, d, cfg.b, cfg.b_star)
+
+    np.testing.assert_array_equal(np.asarray(snk[:, 0]),
+                                  np.asarray(ref_snk))
+    # pad columns stay exactly zero
+    np.testing.assert_array_equal(np.asarray(x_star[:, d:]), 0.0)
+    np.testing.assert_allclose(np.asarray(x_star[:, :d]),
+                               np.asarray(ref_x), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(log_jac[:, 0]),
+                               np.asarray(ref_lj), rtol=2e-5, atol=2e-5)
 
 
 def test_fused_proposal_matches_reference_path():
-    log_prob, cfg_ref, cfg_pl, st_ref, st_pl = _setup()
-    step_ref = dream.make_step(log_prob, cfg_ref)
-    step_pl = dream.make_step(log_prob, cfg_pl)
-    key = jax.random.key(7)
-    with pltpu.force_tpu_interpret_mode():
-        for t in range(12):
-            kt = jax.random.fold_in(key, t)
-            tt = jnp.int32(t)
-            st_ref, info_ref = step_ref(st_ref, kt, tt)
-            st_pl, info_pl = step_pl(st_pl, kt, tt)
-            np.testing.assert_allclose(
-                np.asarray(st_pl.x), np.asarray(st_ref.x),
-                rtol=2e-5, atol=2e-5, err_msg=f"gen {t}")
-            np.testing.assert_array_equal(
-                np.asarray(info_pl.snooker), np.asarray(info_ref.snooker))
+    _compare(dream.DreamConfig(n_chains=32, p_snooker=0.3), 32, 10, 0)
 
 
 def test_fused_proposal_odd_dims_and_chains():
-    """Non-aligned n (not /128) and d (not /128) exercise the padding."""
-    log_prob, cfg_ref, cfg_pl, st_ref, st_pl = _setup(n=20, d=7)
-    step_ref = dream.make_step(log_prob, cfg_ref)
-    step_pl = dream.make_step(log_prob, cfg_pl)
-    key = jax.random.key(3)
-    with pltpu.force_tpu_interpret_mode():
-        for t in range(6):
-            kt = jax.random.fold_in(key, t)
-            st_ref, _ = step_ref(st_ref, kt, jnp.int32(t))
-            st_pl, _ = step_pl(st_pl, kt, jnp.int32(t))
-    np.testing.assert_allclose(np.asarray(st_pl.x), np.asarray(st_ref.x),
-                               rtol=2e-5, atol=2e-5)
+    """Non-power-of-two n and d exercise the padding."""
+    _compare(dream.DreamConfig(n_chains=20, p_snooker=0.3), 20, 7, 3)
 
 
 def test_fused_proposal_d_over_128():
-    """d > one lane block exercises multi-block lane padding."""
-    log_prob, cfg_ref, cfg_pl, st_ref, st_pl = _setup(n=16, d=150)
-    step_ref = dream.make_step(log_prob, cfg_ref)
-    step_pl = dream.make_step(log_prob, cfg_pl)
-    key = jax.random.key(11)
-    with pltpu.force_tpu_interpret_mode():
-        for t in range(4):
-            kt = jax.random.fold_in(key, t)
-            st_ref, _ = step_ref(st_ref, kt, jnp.int32(t))
-            st_pl, _ = step_pl(st_pl, kt, jnp.int32(t))
-    np.testing.assert_allclose(np.asarray(st_pl.x), np.asarray(st_ref.x),
-                               rtol=2e-5, atol=2e-5)
+    """d > 128 pads to 256 columns."""
+    _compare(dream.DreamConfig(n_chains=16, p_snooker=0.3), 16, 150, 11)
 
 
 def test_fused_proposal_demcz_config():
     """delta_max=1 / single-CR (DE-MC-z) reshapes the row sharing."""
-    log_prob, cfg_ref, cfg_pl, st_ref, st_pl = _setup(
-        n=16, d=5, delta_max=1, n_cr=1, adapt_cr=False,
-        outlier_detect=False, jump_interval=10)
-    step_ref = dream.make_step(log_prob, cfg_ref)
-    step_pl = dream.make_step(log_prob, cfg_pl)
-    key = jax.random.key(13)
-    with pltpu.force_tpu_interpret_mode():
-        for t in range(8):
-            kt = jax.random.fold_in(key, t)
-            st_ref, _ = step_ref(st_ref, kt, jnp.int32(t))
-            st_pl, _ = step_pl(st_pl, kt, jnp.int32(t))
-    np.testing.assert_allclose(np.asarray(st_pl.x), np.asarray(st_ref.x),
-                               rtol=2e-5, atol=2e-5)
+    _compare(dream.demcz_config(16, p_snooker=0.3), 16, 5, 13)
 
 
-def test_fused_proposal_under_shard_map():
-    """mesh (shard_map) + fused kernel — the multi-chip TPU configuration.
-
-    Interpret mode is impractically slow under shard_map, and Mosaic can't
-    compile on CPU, so this runs only when a real TPU is the backend (it
-    was validated on hardware: 1-device mesh + pallas equals vmap + pallas
-    bit-for-bit). The CPU suite covers mesh-vs-vmap (pallas off) and
-    vmap-pallas-vs-reference separately.
-    """
-    import pytest
-    if jax.default_backend() != "tpu":
-        pytest.skip("needs a real TPU (Mosaic cannot compile on CPU)")
-    import bipymc_tpu as bp
-    from bipymc_tpu.models.targets import banana
-    from bipymc_tpu.parallel.mesh import chain_mesh
-
-    lp = banana()
-    a = bp.DreamZs(lp, n_chains=16, seed=4, n_archive_init=16,
-                   pallas_proposal=True)
-    a.run_mcmc(100, jnp.zeros(2), spread=2.0)
-    b = bp.DreamZs(lp, n_chains=16, seed=4, n_archive_init=16,
-                   pallas_proposal=True, mesh=chain_mesh())
-    b.run_mcmc(100, jnp.zeros(2), spread=2.0)
-    np.testing.assert_array_equal(a.super_chain, b.super_chain)
+@pytest.mark.parametrize("jump_full_cr", [False, True])
+def test_fused_proposal_jump_generation(jump_full_cr):
+    """γ = 1 jump generations, with and without full-dim crossover."""
+    _compare(dream.DreamConfig(n_chains=16, p_snooker=0.3,
+                               jump_full_cr=jump_full_cr),
+             16, 6, 17, gamma_jump=True)

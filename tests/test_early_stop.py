@@ -106,7 +106,7 @@ def test_run_until_t0_decorrelates_continuation():
 
 
 def test_run_until_reuses_compiled_runner():
-    """Regression (round-2 verdict #1): the default position_fn used to be
+    """Regression: the default position_fn used to be
     a fresh per-call lambda inside run_until and was part of the runner
     cache key, so every run_mcmc_until call on DreamZs/DeMc/EnsembleSampler
     re-traced and re-ran XLA compilation. Two identical calls must share
@@ -234,9 +234,8 @@ def test_run_until_auto_capacity_is_capped():
     """run_mcmc_until's auto archive ring is capped at 32 population
     snapshots (max(8192, 32·n_chains) rows): the worst-case
     chunk·max_chunks hint always clamped to 65536, and carrying a 26 MB
-    ring through the until-while_loop measured 1.65× the north-star
-    wall for identical work (docs/ROUND3.md §14). archive_capacity=
-    still overrides."""
+    ring through the until-while_loop costs wall time for identical
+    work. archive_capacity= still overrides."""
     lp = correlated_gaussian(MEAN, COV)
     s = DreamZs(lp, n_chains=8, seed=0, burnin_gens=4, archive_thin=2)
     s.run_mcmc_until(jnp.zeros(2), rhat_tol=3.0, chunk=4, max_chunks=50000)

@@ -194,7 +194,7 @@ def test_stratified_population_keeps_mode_occupancy():
     final = jnp.asarray(s.super_chain[:, -1, :])
     occ = np.asarray(mode_occupancy(final, jnp.asarray(means)))
     # at d=16 rare hops do occur (they vanish by d≈30 — the Δlogp≈−d
-    # argument in docs/ROUND3.md §2), so assert proportions HELD rather
+    # argument), so assert proportions HELD rather
     # than exact counts: every mode keeps ≥75% of its 16-chain share —
     # the round-2 failure mode was [0, 0, 64, 0]
     assert occ.min() >= 12 and occ.max() <= 20, occ

@@ -69,7 +69,7 @@ def test_archive_sample_only_filled_prefix():
         assert tuple(r) in valid
 
 
-# --- sample_distinct_topk: the TPU-native (Gumbel/top-k) variant ----------
+# --- sample_distinct_topk: the accelerator-native (Gumbel/top-k) variant ---
 
 def test_topk_no_collisions_range_and_exclude():
     from bipymc_tpu.ensemble.indices import sample_distinct_topk

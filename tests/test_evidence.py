@@ -2,7 +2,7 @@
 
 Validation anchor (same policy as tests/test_ns.py / test_smc.py):
 evidence estimators are pinned against ANALYTIC log-normalisers —
-moment checks alone cannot see an evidence bias (docs/ROUND3.md §39).
+moment checks alone cannot see an evidence bias.
 """
 
 import jax

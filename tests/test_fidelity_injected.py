@@ -128,8 +128,7 @@ def test_dreamzs_injected_stream_exact():
                     uu[t, i_global], ep[t, i_global], ua[t, i_global])
 
         cfg = dream.DreamConfig(n_chains=n, delta_max=delta_max, n_cr=n_cr,
-                                burnin_gens=60, archive_thin=thin,
-                                pallas_proposal=False)
+                                burnin_gens=60, archive_thin=thin)
         state = dream.init(jnp.asarray(x0), lp_jax, cfg,
                            archive_capacity=4096, z0=jnp.asarray(z0))
         step = dream.make_step(lp_jax, cfg, axis_name=None,

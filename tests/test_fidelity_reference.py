@@ -5,7 +5,7 @@ reference within tolerance on shared test posteriors. Exact bit-stream
 match is impossible across RNGs (Mersenne-Twister vs threefry —
 SURVEY.md §9 "Fidelity vs NumPy seeding"), so the contract is
 distributional: the independently written reference-semantics NumPy
-implementations in benchmarks/reference_numpy.py and the TPU-native
+implementations in benchmarks/reference_numpy.py and the accelerator-native
 samplers must recover the same posterior moments on shared targets,
 each within its own Monte-Carlo error (SURVEY.md §6).
 """
@@ -47,17 +47,17 @@ class TestDramFidelity:
 
         s = bp.Dram(jax_log_prob, seed=5, n_chains=1)
         s.run_mcmc(12000, jnp.zeros(2), cov_est=jnp.eye(2))
-        hist_tpu = s.chain[3000:]
+        hist_jax = s.chain[3000:]
 
-        for hist, label in ((hist_ref, "reference"), (hist_tpu, "tpu")):
+        for hist, label in ((hist_ref, "reference"), (hist_jax, "jax")):
             err_mean = np.abs(hist.mean(0) - MEAN)
             err_cov = np.abs(np.cov(hist.T) - COV)
             assert err_mean.max() < 0.25, (label, err_mean)
             assert err_cov.max() < 0.6, (label, err_cov)
 
         # cross-implementation agreement (both are MC estimates)
-        assert np.abs(hist_ref.mean(0) - hist_tpu.mean(0)).max() < 0.35
-        assert np.abs(np.cov(hist_ref.T) - np.cov(hist_tpu.T)).max() < 0.8
+        assert np.abs(hist_ref.mean(0) - hist_jax.mean(0)).max() < 0.35
+        assert np.abs(np.cov(hist_ref.T) - np.cov(hist_jax.T)).max() < 0.8
 
 
 class TestDreamZsFidelity:
@@ -75,15 +75,15 @@ class TestDreamZsFidelity:
         s = bp.DreamZs(jax_log_prob, n_chains=n_chains, seed=2,
                        burnin_gens=burn, n_archive_init=16)
         s.run_mcmc(n_gens, jnp.asarray(x0, jnp.float32))
-        hist_tpu = s.get_chain(discard=burn, flat=True)
+        hist_jax = s.get_chain(discard=burn, flat=True)
 
-        for hist, label in ((hist_ref, "reference"), (hist_tpu, "tpu")):
+        for hist, label in ((hist_ref, "reference"), (hist_jax, "jax")):
             err_mean = np.abs(hist.mean(0) - MEAN)
             err_cov = np.abs(np.cov(hist.T) - COV)
             assert err_mean.max() < 0.25, (label, err_mean)
             assert err_cov.max() < 0.6, (label, err_cov)
 
-        assert np.abs(hist_ref.mean(0) - hist_tpu.mean(0)).max() < 0.35
+        assert np.abs(hist_ref.mean(0) - hist_jax.mean(0)).max() < 0.35
 
     def test_acceptance_rates_comparable(self, jax_log_prob):
         """Same algorithm → similar acceptance behaviour on one target."""

@@ -37,7 +37,7 @@ assert np.abs(zf.mean(0) - np.asarray(MEAN)).max() < 0.3
 
 # pairwise_sqdist must keep f64 precision for f64 inputs: points 1e4
 # apart by 1e-3 lose the spacing entirely if squeezed through f32
-from bipymc_tpu.ops.pallas_kernels import pairwise_sqdist
+from bipymc_tpu.ops.distance import pairwise_sqdist
 x = jnp.asarray([[1.0e4], [1.0e4 + 1.0e-3]], jnp.float64)
 r2 = pairwise_sqdist(x)
 assert r2.dtype == jnp.float64, r2.dtype
@@ -54,21 +54,3 @@ def test_float64_samplers():
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "F64 OK" in r.stdout
-
-
-def test_fused_f64_rejected_on_tpu(monkeypatch):
-    """fused=True + float64 must fail at construction when the backend
-    is the TPU (no f64 datapath in Mosaic) — not mid-run."""
-    import jax
-    import jax.numpy as jnp
-    import pytest
-    import bipymc_tpu as bp
-    from bipymc_tpu.models.targets import correlated_gaussian
-    import numpy as np
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    lp = correlated_gaussian(np.zeros(2), np.eye(2))
-    with pytest.raises(ValueError, match="float64"):
-        bp.DreamZs(lp, n_chains=8, fused=True, dtype=jnp.float64)
-    with pytest.raises(ValueError, match="float64"):
-        bp.EnsembleSampler(lp, n_chains=8, fused=True, dtype=jnp.float64)

@@ -53,7 +53,7 @@ def test_targets_exact_posterior_through_imperfect_flow():
 
 
 def test_cross_mode_reequilibration_from_wrong_init():
-    """The capability the DE family lacks (ROUND3.md §2): ALL chains
+    """The capability the DE family lacks: ALL chains
     start in one mode of a 0.5/0.5 mixture; flow global moves restore
     the mode weights within a few hundred generations."""
     sep = 6.0

@@ -140,7 +140,7 @@ def test_fused_mesh_matches_vmap(gmm_prop):
     """FlowMh(mesh=..., fused=True) on 8 fake devices produces the
     SAME trajectories as the single-device fused run: streams fold on
     global chain ids, chains are independent, the proposal is
-    replicated (round-5 verdict #2 — SURVEY §3.2 mesh-path parity)."""
+    replicated (SURVEY §3.2 mesh-path parity)."""
     from bipymc_tpu.parallel.mesh import chain_mesh
     lp = _mixture_lp()
     theta0 = jnp.asarray(np.tile(MEANS[0], (16, 1)), jnp.float32)

@@ -3,11 +3,10 @@ samplers/dream_fused.py) vs the per-generation engine.
 
 The fused engine consumes the identical threefry streams (ChainPool key
 discipline: step_key on the global t, per-chain fold on the global chain
-id) and runs the identical proposal math (ops/dream_proposal.propose_block
-— shared code), so against the per-generation engine's Pallas-proposal
-path its trajectories should agree to float re-association; on the CPU
-interpret path the op sequences coincide and equality is exact in
-practice. We assert exact stream/selection agreement (accept flags, row
+id) and the block form of the per-generation engine's proposal math
+(ops/dream_proposal.propose_block ≡ dream.propose_math_one), so its
+trajectories agree to float re-association. The kernel runs in interpret
+mode here. We assert exact stream/selection agreement (accept flags, row
 choices via the trajectory itself) and tight numerical agreement on
 positions/log-densities, plus archive-ring equality.
 """
@@ -45,9 +44,7 @@ def _collect(state, info):
 
 def test_fused_matches_per_generation_engine():
     log_prob, cfg, state, k_run = _setup()
-    # per-generation engine with the Pallas proposal math (interpret on
-    # CPU) — the same propose_block the fused kernel runs
-    step = dream.make_step(log_prob, cfg._replace(pallas_proposal=True),
+    step = dream.make_step(log_prob, cfg,
                            axis_name=None)
     # burn-in + alignment: 20 gens ≡ 0 (mod thin=5), ≥ burnin_gens=10
     state20, _ = run_scan_thinned(step, state, k_run, n_steps=20, thin=1,
@@ -57,7 +54,7 @@ def test_fused_matches_per_generation_engine():
         t0=20)
 
     runner = make_chunk_runner(
-        log_prob, cfg._replace(pallas_proposal=True))
+        log_prob, cfg)
     fus_state, fus_hist = runner(state20, k_run, 20, 20)
 
     # identical accept/reject decisions → identical randomness + math
@@ -87,7 +84,7 @@ def test_fused_matches_per_generation_engine():
 def test_fused_matches_with_jump_full_cr():
     log_prob, cfg, state, k_run = _setup(jump_full_cr=True,
                                          jump_interval=3)
-    step = dream.make_step(log_prob, cfg._replace(pallas_proposal=True),
+    step = dream.make_step(log_prob, cfg,
                            axis_name=None)
     state20, _ = run_scan_thinned(step, state, k_run, n_steps=20, thin=1,
                                   collect_fn=_collect, t0=0)
@@ -95,7 +92,7 @@ def test_fused_matches_with_jump_full_cr():
         step, state20, k_run, n_steps=10, thin=1, collect_fn=_collect,
         t0=20)
     runner = make_chunk_runner(
-        log_prob, cfg._replace(pallas_proposal=True))
+        log_prob, cfg)
     _, fus_hist = runner(state20, k_run, 10, 20)
     np.testing.assert_array_equal(np.asarray(ref_hist["accepted"]),
                                   np.asarray(fus_hist["accepted"]))
@@ -131,14 +128,14 @@ def test_prep_chunks_invariance():
     indices. prep_chunks=3 on 4 chunks exercises the remainder scan
     (q=1 superchunk of 3 + r=1 leftover chunk)."""
     log_prob, cfg, state, k_run = _setup()
-    step = dream.make_step(log_prob, cfg._replace(pallas_proposal=True),
+    step = dream.make_step(log_prob, cfg,
                            axis_name=None)
     state20, _ = run_scan_thinned(step, state, k_run, n_steps=20, thin=1,
                                   collect_fn=_collect, t0=0)
     outs = []
     for m in (1, 3, 8):
         runner = make_chunk_runner(
-            log_prob, cfg._replace(pallas_proposal=True), prep_chunks=m)
+            log_prob, cfg, prep_chunks=m)
         st, hist = runner(state20, k_run, 20, 20)
         outs.append((st, hist))
     st0, h0 = outs[0]
@@ -160,17 +157,17 @@ def test_fused_mesh_matches_single_device():
     kernel math is per-chain."""
     from bipymc_tpu.parallel.mesh import chain_mesh
     log_prob, cfg, state, k_run = _setup()
-    step = dream.make_step(log_prob, cfg._replace(pallas_proposal=True),
+    step = dream.make_step(log_prob, cfg,
                            axis_name=None)
     state20, _ = run_scan_thinned(step, state, k_run, n_steps=20, thin=1,
                                   collect_fn=_collect, t0=0)
     single = make_chunk_runner(
-        log_prob, cfg._replace(pallas_proposal=True))
+        log_prob, cfg)
     st1, h1 = single(state20, k_run, 20, 20)
 
     mesh = chain_mesh(4)
     sharded = make_chunk_runner(
-        log_prob, cfg._replace(pallas_proposal=True), mesh=mesh)
+        log_prob, cfg, mesh=mesh)
     st2, h2 = sharded(state20, k_run, 20, 20)
 
     np.testing.assert_array_equal(np.asarray(h1["accepted"]),
@@ -195,7 +192,7 @@ def test_api_fused_mesh_matches_vmap():
     means[1, 0] = 4.0
     lp = gaussian_mixture(means, sigma=1.0)
     kw = dict(n_chains=n, seed=5, archive_thin=5, burnin_gens=10,
-              archive_capacity=64, pallas_proposal=True, fused=True)
+              archive_capacity=64, fused=True)
     x0 = np.asarray(var_ball(jax.random.key(1), np.full(d, 4.0), n))
 
     ref = bp.DreamZs(lp, **kw)
@@ -209,45 +206,6 @@ def test_api_fused_mesh_matches_vmap():
                                rtol=1e-6, atol=1e-6)
 
 
-def test_kernel_rng_conversion_matches_stream():
-    """rng='kernel' moves the u_mask/u_e/eps conversions INSIDE the
-    kernel. Fed the exact bits the stream path consumes
-    (_test_stream_bits hook — the interpret PRNG is a zero stub), the
-    in-kernel conversion code must reproduce the stream path: same
-    uniform bit-trick, same inverse-erf map. Accept decisions are
-    exact; positions agree to float re-association (the inline eps
-    conversion fuses into the proposal arithmetic differently than a
-    streamed operand — measured 1-ULP differences, nothing more)."""
-    log_prob, cfg, state, k_run = _setup()
-    step = dream.make_step(log_prob, cfg._replace(pallas_proposal=True),
-                           axis_name=None)
-    state20, _ = run_scan_thinned(step, state, k_run, n_steps=20, thin=1,
-                                  collect_fn=_collect, t0=0)
-    stream = make_chunk_runner(
-        log_prob, cfg._replace(pallas_proposal=True))
-    st1, h1 = stream(state20, k_run, 20, 20)
-    kern = make_chunk_runner(
-        log_prob, cfg._replace(pallas_proposal=True), rng="kernel",
-        _test_stream_bits=True)
-    st2, h2 = kern(state20, k_run, 20, 20)
-    np.testing.assert_array_equal(np.asarray(h1["accepted"]),
-                                  np.asarray(h2["accepted"]))
-    np.testing.assert_allclose(np.asarray(h1["x"]), np.asarray(h2["x"]),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(st1.archive.buf),
-                               np.asarray(st2.archive.buf),
-                               rtol=1e-6, atol=1e-6)
-
-
-def test_kernel_rng_rejected_off_tpu():
-    log_prob, cfg, state, k_run = _setup()
-    runner = make_chunk_runner(log_prob, cfg, rng="kernel")
-    with pytest.raises(ValueError, match="hardware PRNG"):
-        runner(state, k_run, 20, 20)
-    with pytest.raises(ValueError, match="expected 'stream'"):
-        make_chunk_runner(log_prob, cfg, rng="prng")
-
-
 def test_fused_run_until_matches_default():
     """run_mcmc_until with fused=True runs post-burn-in chunks on the
     fused engine inside the while_loop (blockwise moment folding):
@@ -257,7 +215,7 @@ def test_fused_run_until_matches_default():
     d, n = 4, 16
     lp = gaussian_mixture(np.zeros((1, d), np.float32), sigma=1.0)
     kw = dict(n_chains=n, seed=9, archive_thin=5, burnin_gens=20,
-              archive_capacity=256, pallas_proposal=True)
+              archive_capacity=256)
     x0 = np.asarray(var_ball(jax.random.key(2), np.full(d, 4.0), n))
     until_kw = dict(rhat_tol=1.2, chunk=20, max_chunks=40,
                     warmup_chunks=2)
@@ -269,9 +227,13 @@ def test_fused_run_until_matches_default():
 
     assert int(r1["steps"]) == int(r2["steps"])
     np.testing.assert_allclose(r1["rhat"], r2["rhat"], rtol=1e-4)
+    # the kernel's ULP-level rounding differs from XLA's compile of the
+    # per-chain math (XLA contracts the jitter add into an FMA there),
+    # and 80 fused generations of DE moves amplify that: the fused
+    # kernels' stated tolerance (ops/route.py users, chip_smoke.py)
     np.testing.assert_allclose(
         np.asarray(ref.final_state.x), np.asarray(fus.final_state.x),
-        rtol=1e-6, atol=1e-6)
+        rtol=2e-4, atol=2e-5)
     # unaligned chunk is rounded up to a multiple of archive_thin
     fus2 = bp.DreamZs(lp, fused=True, **kw)
     r3 = fus2.run_mcmc_until(jnp.asarray(x0), rhat_tol=1.2, chunk=18,
@@ -290,7 +252,7 @@ def test_fused_run_until_mesh_matches_single_device():
     d, n = 4, 16
     lp = gaussian_mixture(np.zeros((1, d), np.float32), sigma=1.0)
     kw = dict(n_chains=n, seed=9, archive_thin=5, burnin_gens=20,
-              archive_capacity=256, pallas_proposal=True)
+              archive_capacity=256)
     x0 = np.asarray(var_ball(jax.random.key(2), np.full(d, 4.0), n))
     until_kw = dict(rhat_tol=1.2, chunk=20, max_chunks=40,
                     warmup_chunks=2)
@@ -309,46 +271,6 @@ def test_fused_run_until_mesh_matches_single_device():
         np.asarray(meshed.final_state.archive.buf))
 
 
-def test_kernel_rng_seed_decorrelation():
-    """Kernel-RNG seed words fold the global chain offset: distinct per
-    mesh shard (otherwise every device would seed the in-kernel PRNG
-    identically and chains would repeat across shards)."""
-    from bipymc_tpu.core.rng import step_key
-    from bipymc_tpu.parallel.collectives import chain_offset
-    from bipymc_tpu.parallel.mesh import chain_mesh, CHAIN_AXIS
-    from bipymc_tpu.samplers.dream_fused import _kernel_rng_seeds
-    from jax.sharding import PartitionSpec as P
-
-    keys = jax.vmap(lambda t: step_key(jax.random.key(0), t))(
-        jnp.arange(5, dtype=jnp.int32))
-    s0 = _kernel_rng_seeds(keys, jnp.int32(0))
-    s1 = _kernel_rng_seeds(keys, jnp.int32(2))
-    assert not np.array_equal(np.asarray(s0), np.asarray(s1))
-
-    mesh = chain_mesh(4)
-
-    def body():
-        return _kernel_rng_seeds(keys, chain_offset(2, CHAIN_AXIS))[None]
-
-    out = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(),
-                                out_specs=P(CHAIN_AXIS),
-                                check_vma=False))()
-    rows = {tuple(r) for r in np.asarray(out)}
-    assert len(rows) == 4          # one distinct stream per shard
-
-
-def test_api_fused_rng_flag():
-    import bipymc_tpu as bp
-    lp = gaussian_mixture(np.zeros((1, 2), np.float32))
-    with pytest.raises(ValueError, match="fused_rng"):
-        bp.DreamZs(lp, n_chains=8, fused=True, fused_rng="bogus")
-    # kernel mode is rejected at CONSTRUCTION off-TPU (raising mid-run
-    # would leave the sampler half-advanced — review finding)
-    with pytest.raises(ValueError, match="hardware PRNG"):   # CPU here
-        bp.DreamZs(lp, n_chains=8, seed=0, burnin_gens=0, fused=True,
-                   fused_rng="kernel", archive_capacity=64)
-
-
 def test_fused_validation_errors():
     log_prob, cfg, state, k_run = _setup()
     runner = make_chunk_runner(log_prob, cfg)
@@ -362,15 +284,8 @@ def test_fused_validation_errors():
         check_fusable(cfg._replace(use_archive=False))
     with pytest.raises(ValueError, match="replicated"):
         check_fusable(cfg._replace(shard_archive=True))
-    # round 4: K>1 at exactly n_chains=8 is a guarded Mosaic compiler
-    # crash (SIGABRT in tpu_compile_helper) — must raise on the compile
-    # path (interpret=False), and must NOT block interpret mode, where
-    # Mosaic never runs (round-4 code-review fix)
-    with pytest.raises(ValueError, match="Mosaic"):
-        make_chunk_runner(log_prob, cfg._replace(n_chains=8),
-                          z_update_every=2, interpret=False)
     make_chunk_runner(log_prob, cfg._replace(n_chains=8),
-                      z_update_every=2, interpret=True)   # builds fine
+                      z_update_every=2)                  # builds fine
 
 
 def test_api_fused_matches_default_engine():
@@ -382,7 +297,7 @@ def test_api_fused_matches_default_engine():
     means[1, 0] = 4.0
     lp = gaussian_mixture(means, sigma=1.0)
     kw = dict(n_chains=n, seed=5, archive_thin=5, burnin_gens=10,
-              archive_capacity=64, pallas_proposal=True)
+              archive_capacity=64)
     x0 = np.asarray(var_ball(jax.random.key(1), np.full(d, 4.0), n))
 
     ref = bp.DreamZs(lp, **kw)
@@ -422,9 +337,8 @@ def test_z_update_first_block_matches_exact_second_diverges():
     identical archive as the per-generation engine (bit-equal streams →
     equal trajectories), the SECOND samples a Z stale by one append and
     diverges — the documented staleness boundary."""
-    # n=16, not the default 8: K>1 at n=8 is the guarded Mosaic crash
     log_prob, cfg, state, k_run = _setup(n=16, capacity=256)
-    step = dream.make_step(log_prob, cfg._replace(pallas_proposal=True),
+    step = dream.make_step(log_prob, cfg,
                            axis_name=None)
     state20, _ = run_scan_thinned(step, state, k_run, n_steps=20, thin=1,
                                   collect_fn=_collect, t0=0)
@@ -432,7 +346,7 @@ def test_z_update_first_block_matches_exact_second_diverges():
         step, state20, k_run, n_steps=10, thin=1, collect_fn=_collect,
         t0=20)
     runner = make_chunk_runner(
-        log_prob, cfg._replace(pallas_proposal=True), z_update_every=2)
+        log_prob, cfg, z_update_every=2)
     fus_state, fus_hist = runner(state20, k_run, 10, 20)
     G = cfg.archive_thin
     np.testing.assert_allclose(np.asarray(ref_hist["x"][:G]),
@@ -453,7 +367,7 @@ def test_z_update_first_block_matches_exact_second_diverges():
 def test_z_update_batched_publish_matches_history():
     """A K=3 super-block's batched append writes exactly the K thinned
     history snapshots, time-ordered, at the sequential ring positions."""
-    d, n, thin = 4, 16, 5   # n!=8: K>1 at n=8 is the guarded Mosaic crash
+    d, n, thin = 4, 16, 5
     log_prob = gaussian_mixture(np.zeros((1, d), np.float32), sigma=1.0)
     cfg = dream.DreamConfig(n_chains=n, archive_thin=thin, burnin_gens=0)
     key = jax.random.key(3)
@@ -480,7 +394,7 @@ def test_api_fused_z_update():
     chunk rounding in run_mcmc_until respects the super-block length,
     and misuse raises."""
     import bipymc_tpu as bp
-    d, n = 4, 16            # not 8: K>1 at n=8 is the guarded Mosaic crash
+    d, n = 4, 16
     lp = gaussian_mixture(np.zeros((1, d), np.float32), sigma=1.0)
     x0 = np.asarray(var_ball(jax.random.key(2), np.full(d, 2.0), n))
     s = bp.DreamZs(lp, n_chains=n, seed=5, archive_thin=5,

@@ -280,7 +280,7 @@ def test_injected_draws_override():
 
 
 def test_escape_accept_from_out_of_support_start():
-    """Review finding (ROUND3 §22): guarding isfinite(log_alpha) treated
+    """Review finding: guarding isfinite(log_alpha) treated
     the +inf escape ratio from a logp=-inf start as a divergence and
     froze the chain forever. Policy (matching the RW/DE families):
     sanitize the PROPOSAL side only — a finite proposal escape-accepts."""

@@ -262,7 +262,7 @@ def test_gmm_proposal_inflate():
 
 def test_fit_gmm_jitted_sanitizes_nonfinite_rows():
     """Under jit the non-finite-draws check cannot raise; fit_gmm must
-    instead ZERO-WEIGHT bad rows (round-4 ADVICE: a single NaN draw
+    instead ZERO-WEIGHT bad rows (a single NaN draw
     silently poisoned a jitted EM fit). The jitted fit on data with
     poisoned rows must stay finite and match the eager fit on the
     clean subset to statistical tolerance."""
@@ -287,8 +287,8 @@ def test_fit_gmm_jitted_sanitizes_nonfinite_rows():
 
 def test_gmm_proposal_diag_negative_diagonal_signed():
     """A hand-built diagonal GmmParams with NEGATIVE Cholesky diagonal
-    entries must color draws with the SIGNED diagonal (round-4 ADVICE:
-    the row-norm fast path silently flipped draw signs). L and -L give
+    entries must color draws with the SIGNED diagonal (a row-norm fast
+    path once silently flipped draw signs). L and -L give
     the same covariance, so draws must satisfy x = mu + diag * eps
     elementwise with the signed diag."""
     d = 3

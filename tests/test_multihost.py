@@ -1,6 +1,6 @@
 """Multi-host path: 2-process jax.distributed smoke (SURVEY.md §3.2).
 
-The reference scales across nodes with ``mpiexec -n K``; the TPU-native
+The reference scales across nodes with ``mpiexec -n K``; the accelerator-native
 equivalent is one ``init_distributed()`` per host joining a coordinator,
 after which the same mesh/shard_map code spans processes (ICI within a
 slice, DCN between slices). This launches two OS processes on this host

@@ -1,8 +1,7 @@
 """The north-star pipeline harness (benchmarks/northstar_config3.py)
 stays runnable: BENCH_SMOKE subprocess must converge and satisfy the
-verdict thresholds at smoke scale. Protects the bench.py phase-3 path
-(the driver's BENCH_r* flow) from bitrot; the full-scale numbers are
-chip-measured (docs/ROUND4.md §3)."""
+acceptance thresholds at smoke scale. Protects the bench.py phase-3
+path from bitrot; full scale runs on the GPU (chip_smoke.py)."""
 
 import json
 import os
@@ -14,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_northstar_smoke_pipeline_converges():
     env = dict(os.environ, BENCH_SMOKE="1", JAX_PLATFORMS="cpu")
-    env.pop("BIPYMC_TPU_TESTS", None)
+    env.pop("BIPYMC_GPU_TESTS", None)
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "benchmarks",
                                       "northstar_config3.py")],
@@ -28,7 +27,7 @@ def test_northstar_smoke_pipeline_converges():
 
 
 def test_write_artifact_merges_and_records_cache_ab(tmp_path, monkeypatch):
-    """The shared artifact writer (round-5 review consolidation):
+    """The shared artifact writer:
     preserves arms not re-measured, keeps the compilation_cache key,
     and records the second-process cache A/B fields only when the
     headline arm was measured fresh against a prior result."""

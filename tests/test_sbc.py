@@ -113,92 +113,28 @@ def test_chees_ranks_uniform():
 
 
 # ---------------------------------------------------------------------------
-# SBC for the HEADLINE engine (round-4 verdict #5): the fused DREAM-zs
-# Pallas path with fused_rng="kernel" + fused_z_update>1 — the two modes
-# outside the bit-exact injected-stream fidelity net by construction
-# (hardware-PRNG streams and batched archive publishes are not
-# bit-comparable to the per-generation engine; api.py fused_rng docs).
-# The kernel PRNG exists only on TPU, so the test is hardware-gated
-# (BIPYMC_TPU_TESTS=1).
-#
-# Design note: per-replication *data* would put a different log_prob
-# closure inside the Pallas kernel each time (one recompile per
-# replication), so this arm runs PRIOR-SBC on a shared, exactly-
-# sampleable banana target: θ̃ ~ π drawn exactly by transform, the
-# kernel targets π itself, and over replications the rank of θ̃ among
-# M thinned chain-0 draws is uniform iff the fused kernel preserves π.
-# Same Talts validity argument (the "posterior" is π with no data
-# term); the target is curved so acceptance-rule/Jacobian biases
-# still register. One sampler object is reused with a fresh seed per
-# replication — identical shapes, so the engine compiles once.
-# ---------------------------------------------------------------------------
-
-_BANANA_B = 0.3
-
-
-def _banana_lp(x):
-    t2 = x[1] - _BANANA_B * (x[0] ** 2 - 1.0)
-    return -0.5 * (x[0] ** 2 + t2 ** 2)
-
-
-def _banana_sample(key):
-    z = jax.random.normal(key, (2,))
-    return jnp.stack([z[0], z[1] + _BANANA_B * (z[0] ** 2 - 1.0)])
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="fused_rng='kernel' needs the TPU hardware PRNG")
-def test_fused_kernel_rng_dreamzs_ranks_uniform():
-    import bipymc_tpu as bp
-
-    # n_chains=16, not 8: fused_z_update>1 at exactly 8 chains hits a
-    # guarded Mosaic compiler crash (samplers/dream_fused.py)
-    N_REPL, M, THIN, BURN, N_CH = 128, 63, 10, 400, 16
-    s = bp.DreamZs(_banana_lp, n_chains=N_CH, seed=0, burnin_gens=0,
-                   fused=True, fused_rng="kernel", fused_z_update=4)
-    prior_keys = jax.random.split(jax.random.key(999), N_REPL)
-    ranks = np.zeros((N_REPL, 2), np.int32)
-    for k in range(N_REPL):
-        kp, kx = jax.random.split(prior_keys[k])
-        theta_t = _banana_sample(kp)
-        x0 = theta_t + 0.5 * jax.random.normal(kx, (N_CH, 2))
-        x0 = x0.at[0].set(theta_t)          # exact-π start for chain 0
-        s.seed = 1000 + k                    # fresh streams, same shapes
-        s.reset()
-        s.run_mcmc(BURN + M * THIN, x0)
-        xh = jnp.concatenate([c["x"] for c in s._chunks], axis=0)
-        draws = xh[BURN + THIN - 1::THIN, 0, :]          # [M, 2] chain 0
-        ranks[k] = np.asarray(jnp.sum(
-            (draws < theta_t[None, :]).astype(jnp.int32), axis=0))
-    stat, thresh = sbc_uniformity(jnp.asarray(ranks), n_bins=8, n_draws=M)
-    assert np.all(stat < thresh), (stat, thresh)
-
-
-# ---------------------------------------------------------------------------
-# SBC for the FlowMh/GMM COMPOSED kernel (round-5 verdict #5): the
-# engine class that harbored round 4's MXU-precision bias (bf16 matmul
-# truncation in gmm_log_q_diag put O(nats) of position-dependent error
-# into the proposal density at headline-scale mode norms ‖μ‖≈50 — a
-# fitted-proposal density error biases π while per-dim R̂ still
-# converges; docs/ROUND4.md §4). Prior-SBC, same design as the fused
-# kernel-rng test above: the target is exactly sampleable (4-mode
-# isotropic mixture at the TRUE headline geometry, d=100, spread 5), a
-# diag GMM is FITTED to exact draws, and chain 0's thinned draws must
-# rank θ̃ uniformly. The run executes under default matmul precision —
-# the production environment where the bug lived — so the test
-# validates that every matmul on the density path carries its OWN
-# explicit Precision.HIGHEST (conftest's global "highest" pin would
-# otherwise mask exactly this bug class).
+# SBC for the FlowMh/GMM COMPOSED kernel: a reduced-precision matmul in
+# gmm_log_q_diag (TF32 is the GPU's default for float32 products) puts
+# O(nats) of position-dependent error into the proposal density at
+# headline-scale mode norms ‖μ‖≈50 — a fitted-proposal density error
+# biases π while per-dim R̂ still converges. Prior-SBC: the target is
+# exactly sampleable (4-mode isotropic mixture at the TRUE headline
+# geometry, d=100, spread 5), a diag GMM is FITTED to exact draws, and
+# chain 0's thinned draws must rank θ̃ uniformly. One sampler object is
+# reused with a fresh seed per replication, so the engine compiles once.
+# The run executes under default matmul precision — the production
+# environment — so the test validates that every matmul on the density
+# path carries its OWN explicit Precision.HIGHEST (conftest's global
+# "highest" pin would otherwise mask exactly this bug class).
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="MXU default-precision truncation is the "
-                           "failure mode under test — TPU only")
+@pytest.mark.gpu
 def test_flowmh_gmm_fitted_proposal_ranks_uniform():
     import bipymc_tpu as bp
     from bipymc_tpu.models.targets import (baseline_config3_means,
-                                           gaussian_mixture)
+                                           gaussian_mixture,
+                                           gaussian_mixture_block)
     from bipymc_tpu.utils.mixtures import fit_gmm, gmm_proposal
 
     D, N_CH, N_REPL, M, THIN, BURN = 100, 16, 128, 63, 2, 20
@@ -218,7 +154,8 @@ def test_flowmh_gmm_fitted_proposal_ranks_uniform():
                             n_iters=100, cov_type="diag")
         prop = gmm_proposal(params, 1.05)
         s = bp.FlowMh(lp, prop, n_chains=N_CH, seed=0, local_moves=1,
-                      global_every=1, rw_scale=0.2, fused=True)
+                      global_every=1, rw_scale=0.2, fused=True,
+                      log_prob_block=gaussian_mixture_block(means))
         prior_keys = jax.random.split(jax.random.key(999), N_REPL)
         ranks = np.zeros((N_REPL, D), np.int32)
         for k in range(N_REPL):

@@ -1,6 +1,7 @@
 """Distributed path: shard_map over 8 fake CPU devices must reproduce the
-single-device vmap path bit-for-bit (SURVEY.md §6 "TPU equivalent" of the
-reference's mpiexec smoke tests; key-folding by global chain index makes
+single-device vmap path bit-for-bit (SURVEY.md §6: the accelerator
+equivalent of the reference's mpiexec smoke tests; key-folding by global chain
+index makes
 the two paths share RNG streams)."""
 
 import jax

@@ -66,7 +66,7 @@ def test_beta_ladder_monotone_and_ends_at_one():
 
 
 def test_mixture_mode_weights_recovered():
-    """THE capability gap SMC closes (docs/ROUND3.md §2): a 0.7/0.3
+    """THE capability gap SMC closes: a 0.7/0.3
     two-mode mixture at 8σ separation — annealing transports mass, so
     mode weights come out right without any inter-mode MCMC mixing."""
     d = 4
@@ -89,7 +89,7 @@ def test_mixture_mode_weights_recovered():
 
 
 def test_mesh_decisions_bit_identical_positions_ulp():
-    """Gather-then-reduce (ROUND3 §11): the decision MATH is identical
+    """Gather-then-reduce: the decision MATH is identical
     mesh vs vmap, so given bit-identical particles every decision is
     bit-identical. Particles themselves drift by ~1 ulp per move
     (batch-shape FMA contraction in the local programs), and from stage
@@ -190,7 +190,7 @@ def test_custom_reference_pair():
 
 
 def test_hmc_kernel_survives_d48_mixture():
-    """The measured RW-rejuvenation failure (ROUND3 §21): at d=48 the
+    """The measured RW-rejuvenation failure: at d=48 the
     basin-level selection noise drives one mode extinct. kernel="hmc"
     (leapfrog rejuvenation, population-variance mass, cross-stage ε
     adaptation) keeps both basins and nails the evidence."""
@@ -247,7 +247,7 @@ def test_kernel_validation():
 
 
 def test_nan_target_at_init_dies_cleanly():
-    """Review finding (ROUND3 §22): a single NaN log-target value at an
+    """Review finding: a single NaN log-target value at an
     auto-drawn reference particle must kill THAT particle, not NaN the
     β-solve/evidence and burn max_stages."""
     d = 2

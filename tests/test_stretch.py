@@ -44,74 +44,6 @@ def test_odd_walker_count_raises():
         bp.EnsembleSampler(banana(), n_chains=7).run_mcmc(10, jnp.zeros(2))
 
 
-def test_fused_matches_per_generation():
-    """Fused stretch engine (ops/fused_stretch.py): identical streams →
-    identical accept decisions and matching trajectories, across a
-    kernel-chunk boundary and a continuation run."""
-    lp = correlated_gaussian(MEAN, COV)
-    a = bp.EnsembleSampler(lp, n_chains=16, seed=4)
-    a.run_mcmc(50, jnp.zeros(2), spread=1.0)
-    b = bp.EnsembleSampler(lp, n_chains=16, seed=4, fused=True)
-    b.run_mcmc(50, jnp.zeros(2), spread=1.0)
-    np.testing.assert_array_equal(
-        np.asarray(a._history["accepted"]),
-        np.asarray(b._history["accepted"]))
-    np.testing.assert_allclose(a.super_chain, b.super_chain,
-                               rtol=1e-6, atol=1e-6)
-    # continuation consumes the same downstream streams
-    a.run_mcmc(30)
-    b.run_mcmc(30)
-    np.testing.assert_allclose(a.super_chain, b.super_chain,
-                               rtol=1e-6, atol=1e-6)
-    assert int(b.final_state.gen) == 80
-
-
-def test_fused_bf16_partner_indices_exact():
-    """Walker dtypes narrower than float32 must not corrupt partner
-    indices: the fused engine packs j through promote(dtype, f32) (bf16
-    integers are exact only to 256, so n_chains > 256 in bf16 would
-    silently gather wrong complementary walkers otherwise). Accept
-    decisions must agree with the per-generation engine (not pinned
-    exact: XLA emulates bf16 ops with different intermediate rounding
-    than the interpret path, so ~1-ulp accept margins can flip — the
-    partner-index bug this guards against flipped ~10%/generation)."""
-    lp = correlated_gaussian(MEAN, COV)
-
-    def run(fused):
-        s = bp.EnsembleSampler(lp, n_chains=320, seed=7, fused=fused,
-                               dtype=jnp.bfloat16)
-        s.run_mcmc(3, jnp.zeros(2), spread=1.0)
-        return (np.asarray(s._history["accepted"]),
-                np.asarray(s.super_chain, np.float32))
-    acc_a, x_a = run(False)
-    acc_b, x_b = run(True)
-    assert (acc_a == acc_b).mean() > 0.99
-    # positions: same walkers up to the flipped-margin accepts
-    assert (np.abs(x_a - x_b) < 0.1).mean() > 0.98
-
-
-def test_fused_rhat_stop_matches_default():
-    """run_mcmc_until with fused=True: same stopping point and R-hat as
-    the per-generation engine (no alignment constraints — stretch has
-    no archive, so every chunk fuses from generation 0)."""
-    lp = correlated_gaussian(MEAN, COV)
-    kw = dict(rhat_tol=1.15, chunk=50, max_chunks=60, spread=1.5)
-    a = bp.EnsembleSampler(lp, n_chains=16, seed=5)
-    ia = a.run_mcmc_until(jnp.zeros(2), **kw)
-    b = bp.EnsembleSampler(lp, n_chains=16, seed=5, fused=True)
-    ib = b.run_mcmc_until(jnp.zeros(2), **kw)
-    assert int(ia["steps"]) == int(ib["steps"])
-    np.testing.assert_allclose(ia["rhat"], ib["rhat"], rtol=1e-4)
-
-
-def test_fused_validation():
-    lp = correlated_gaussian(MEAN, COV)
-    with pytest.raises(ValueError, match="single-device"):
-        bp.EnsembleSampler(lp, n_chains=16, fused=True, mesh=chain_mesh())
-    with pytest.raises(ValueError, match="walkers"):
-        bp.EnsembleSampler(lp, n_chains=2048, fused=True)
-
-
 def test_walk_move_moments_on_correlated_gaussian():
     """move='walk' (emcee WalkMove, s = full complementary half):
     recovers mean/cov of a correlated Gaussian, with healthy
@@ -149,7 +81,8 @@ def test_walk_move_rank_deficient_half_survives():
 
 
 def test_walk_move_rejects_fused_and_unknown_move():
-    with pytest.raises(ValueError, match="stretch move only"):
+    # the ensemble sampler has no fused engine (per-generation only)
+    with pytest.raises(TypeError, match="fused"):
         bp.EnsembleSampler(banana(), n_chains=16, move="walk", fused=True)
     with pytest.raises(ValueError, match="unknown ensemble move"):
         bp.EnsembleSampler(banana(), n_chains=16,

@@ -151,7 +151,7 @@ def test_mesh_close_to_vmap():
     b.run(60, theta_0=MEAN, spread=1.5)
     # bandwidth decisions are replicated math on gathered positions →
     # identical; the φ row-block matmuls sit at the house cross-shape
-    # rounding floor (docs/ROUND3.md §11), so positions are allclose
+    # rounding floor, so positions are allclose
     np.testing.assert_allclose(a.particles, b.particles,
                                rtol=2e-5, atol=2e-6)
 
